@@ -1,0 +1,390 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``segfusion_tpu_torch``) on one
+NVIDIA GPU (written for an H100).
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (exit code 1, no result line) on failure:
+
+1. the card's name and power limit (nvidia-smi);
+2. build of the CUDA kernels from ``segfusion_tpu_torch/csrc`` (nvcc,
+   sm_90a) and their ptxas report;
+3. each kernel against its plain PyTorch version at 448^3, bf16 and f32 geo
+   state (a random canonical volume entered into slot form, then a few
+   ``integrate_rows`` updates): shadow builds bit-exact, reconcile slot
+   bit-exact, reconcile key exact; kernel and plain times from CUDA events;
+4. the headline configuration through ``Pipeline.fuse_sequence_rows``:
+   AdapNet++ stage 2 + FusionNet v3 (growth factor 6, semantics), 448^3
+   at 1 cm, 256x256 frames, frame_block 4, sem_integrate_every 8, bf16
+   geo, nets in bf16, seeded random weights; 2 chunks of 32 frames, then
+   the exit reconcile. Launch counts are reset before and read after;
+5. the exact recurrence (frame_block 1, every frame's semantics, f32 geo,
+   dirty-shadow carry off, so the full shadow build runs);
+6. the same small stream (64^3, 32x32, f32 nets, TF32 off) on the card and
+   on the CPU (the plain versions), compared;
+7. ``fuse_many`` through the port's Database over its Synthetic dataset.
+
+Then one JSON line of per-kernel results, the card line again, and last
+``{"ok": true, "device": {...}}``. Exits non-zero without a result where
+torch sees no CUDA device.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from segfusion_tpu_torch.core.database import Database
+from segfusion_tpu_torch.core.pipeline import Pipeline
+from segfusion_tpu_torch.data.synthetic import Synthetic
+from segfusion_tpu_torch.headline import (HEADLINE_SHAPE, build_pipeline,
+                                          headline_config, headline_volume,
+                                          render_frames)
+from segfusion_tpu_torch.models.adapnet import SegmenterAdapter
+from segfusion_tpu_torch.ops import rowvol
+from segfusion_tpu_torch.ops.integrate import pack_semantic_key
+from segfusion_tpu_torch.ops.kernels import shadow_build as sb
+
+PALLAS = "segfusion_tpu/ops/pallas/shadow_build.py"
+SOURCE = "segfusion_tpu_torch/csrc/shadow_build.cu"
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean milliseconds per call from CUDA events, after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# -- phase 3: kernels against their plain versions ----------------------------
+
+def slot_state(L, geo_dtype, dev, seed=0):
+    """A reachable slot state: random canonical volume -> rows_from_volume,
+    then integrate_rows of 3 random 65536-ray frames (writer invariant
+    kept)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (L.X, L.Y, L.Z)
+    w = torch.rand(shape, generator=g, device=dev) * 4
+    w = torch.where(torch.rand(shape, generator=g, device=dev) < 0.5, w, 0.0)
+    num = torch.randn(shape, generator=g, device=dev) * 0.05 * w
+    key = torch.randint(0, 2 ** 31 - 1, shape, generator=g, device=dev,
+                        dtype=torch.int32)
+    geo, krows = rowvol.rows_from_volume(num, w, key, L, geo_dtype=geo_dtype)
+    del num, w, key
+    n, p, t = 65536, 9, 7
+    hi = torch.tensor([L.X, L.Y, L.Z], device=dev, dtype=torch.float32)
+    for _ in range(3):
+        c = torch.rand((n, 1, 3), generator=g, device=dev) * (hi + 4) - 2
+        d = torch.nn.functional.normalize(
+            torch.randn((n, 1, 3), generator=g, device=dev), dim=-1)
+        offs = torch.arange(-(p // 2), p // 2 + 1, device=dev,
+                            dtype=torch.float32)[None, :, None]
+        cr = rowvol.corner_rows(c + offs * d, L)
+        values = torch.randn((n, t), generator=g, device=dev) * 0.1
+        sem_key = pack_semantic_key(
+            torch.rand(n, generator=g, device=dev),
+            torch.randint(0, 30, (n,), generator=g, device=dev))
+        mask = torch.rand(n, generator=g, device=dev) > 0.1
+        rowvol.integrate_rows(geo, krows, cr, values, sem_key, mask, t)
+    return geo, krows
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def check_kernels(dev):
+    """Bit-exactness and times at 448^3; returns per-kernel results (bf16
+    geo, the headline dtype) for the JSON line."""
+    L = rowvol.RowLayout.for_shape(HEADLINE_SHAPE)
+    ty, nj = rowvol.shadow_tiling(L)
+    results = {}
+    for geo_dtype in (torch.bfloat16, torch.float32):
+        tag = str(geo_dtype).replace("torch.", "")
+        geo, krows = slot_state(L, geo_dtype, dev)
+        g = torch.Generator(device=dev).manual_seed(1)
+        prev = torch.randint(-2 ** 31, 2 ** 31 - 1, (L.shadow_rows, 128),
+                             generator=g, device=dev, dtype=torch.int32)
+        dirty = torch.cat([
+            (torch.rand(L.X * nj, generator=g, device=dev) < 0.5).int(),
+            torch.zeros(1, dtype=torch.int32, device=dev)])
+        dirty_frac = float(dirty[:-1].float().mean())
+
+        full_k = sb.build_shadow(geo, L, ty)
+        full_p = sb.build_shadow_plain(geo, L)
+        dirty_k = sb.build_shadow_dirty(geo, prev.clone(), dirty, L, ty)
+        dirty_p = sb.build_shadow_dirty_plain(geo, prev.clone(), dirty, L,
+                                              ty)
+        num_k, w_k = sb.reconcile_slot(geo, L)
+        num_p, w_p = sb.reconcile_slot_plain(geo, L)
+        key_k = sb.reconcile_key(krows, L)
+        key_p = sb.reconcile_key_plain(krows, L)
+        torch.cuda.synchronize()
+        checks = {
+            "build_shadow": torch.equal(full_k, full_p),
+            "build_shadow_dirty": torch.equal(dirty_k, dirty_p),
+            "reconcile_slot": (
+                torch.equal(num_k.view(torch.int32), num_p.view(torch.int32))
+                and torch.equal(w_k.view(torch.int32),
+                                w_p.view(torch.int32))),
+            "reconcile_key": torch.equal(key_k, key_p),
+        }
+        errs = {
+            "build_shadow": max_abs(full_k, full_p),
+            "build_shadow_dirty": max_abs(dirty_k, dirty_p),
+            "reconcile_slot": max(max_abs(num_k, num_p), max_abs(w_k, w_p)),
+            "reconcile_key": max_abs(key_k, key_p),
+        }
+        nonzero = int((full_k != 0).sum())
+        del full_p, dirty_p, num_p, w_p, key_p
+        scratch = prev.clone()
+        times = {
+            "build_shadow": (
+                cuda_ms(lambda: sb.build_shadow(geo, L, ty), 20),
+                cuda_ms(lambda: sb.build_shadow_plain(geo, L), 5)),
+            "build_shadow_dirty": (
+                cuda_ms(lambda: sb.build_shadow_dirty(geo, scratch, dirty, L,
+                                                      ty), 20),
+                cuda_ms(lambda: sb.build_shadow_dirty_plain(
+                    geo, scratch, dirty, L, ty), 5)),
+            "reconcile_slot": (
+                cuda_ms(lambda: sb.reconcile_slot(geo, L), 20),
+                cuda_ms(lambda: sb.reconcile_slot_plain(geo, L), 5)),
+            "reconcile_key": (
+                cuda_ms(lambda: sb.reconcile_key(krows, L), 20),
+                cuda_ms(lambda: sb.reconcile_key_plain(krows, L), 5)),
+        }
+        geo_b = geo.numel() * geo.element_size()
+        key_b = krows.numel() * 4
+        vox = L.X * L.Y * L.Z
+        moved = {"build_shadow": geo_b + key_b,
+                 "build_shadow_dirty": dirty_frac * (geo_b + key_b),
+                 "reconcile_slot": geo_b + 8 * vox,
+                 "reconcile_key": key_b + 4 * vox}
+        log(f"kernels {tag} geo at 448^3 (dirty fraction {dirty_frac:.3f}, "
+            f"{nonzero} non-zero shadow words):")
+        for name, ok in checks.items():
+            k_ms, p_ms = times[name]
+            log(f"  {name:20s} exact={ok} max_abs_err={errs[name]} "
+                f"kernel {k_ms:.4f} ms ({moved[name] / k_ms / 1e6:.1f} GB/s "
+                f"of minimum traffic)  plain {p_ms:.4f} ms")
+            if not ok:
+                raise RuntimeError(f"{name} ({tag}) disagrees with its "
+                                   "plain version")
+            if geo_dtype == torch.bfloat16:
+                results[name] = {"max_abs_err": errs[name], "ms": k_ms,
+                                 "plain_ms": p_ms}
+        del geo, krows, prev, scratch, full_k, dirty_k, num_k, w_k, key_k
+        torch.cuda.empty_cache()
+    return results
+
+
+# -- phases 4-7: the main path ------------------------------------------------
+
+def run_stream(pipe, volume, chunks, warm=None):
+    """Enter, fuse ``chunks`` (frame dicts) through fuse_sequence_rows,
+    exit. A ``warm`` chunk first runs on a throw-away stream. Returns
+    (volume, launch counts, fuse seconds, total seconds)."""
+    layout = rowvol.RowLayout.for_shape(tuple(volume.num.shape))
+    if warm is not None:
+        s = pipe._new_stream(layout, pipe._enter_rows(layout, volume))
+        pipe.fuse_sequence_rows(layout, s, warm)
+        del s
+    torch.cuda.synchronize()
+    sb.reset_launch_counts()
+    t0 = time.perf_counter()
+    s = pipe._new_stream(layout, pipe._enter_rows(layout, volume))
+    for frames in chunks:
+        s = pipe.fuse_sequence_rows(layout, s, frames)
+    torch.cuda.synchronize()
+    t_fuse = time.perf_counter() - t0
+    out = pipe._exit_rows(layout, s.rv)
+    del s
+    torch.cuda.synchronize()
+    counts = sb.launch_counts()
+    return out, counts, t_fuse, time.perf_counter() - t0
+
+
+def check_volume(out, what: str):
+    finite = bool(torch.isfinite(out.num).all()
+                  and torch.isfinite(out.weights).all())
+    observed = int((out.weights > 0).sum())
+    ids = torch.unique(out.semantics[out.semkey > 0]).tolist()
+    log(f"  {what}: finite={finite} observed_voxels={observed} "
+        f"semantic_ids={len(ids)}")
+    if not finite or observed == 0 or len(ids) < 2:
+        raise RuntimeError(f"{what}: implausible fused volume")
+
+
+def require(counts, names, what):
+    zero = [n for n in names if counts[n] == 0]
+    if zero:
+        raise RuntimeError(f"{what}: kernels not launched: {zero}")
+
+
+def headline(dev):
+    cfg = headline_config()
+    pipe = build_pipeline(cfg, dev)
+    frames = render_frames(32, 256, 256, dev)
+    volume = headline_volume(dev, HEADLINE_SHAPE)
+    # warm-up: a whole chunk, so allocator growth and cuDNN's first
+    # calls stay out of the timed run
+    out, counts, t_fuse, t_all = run_stream(pipe, volume, [frames, frames],
+                                            warm=frames)
+    log(f"headline (448^3, 256x256, frame_block 4, sem every 8, bf16 geo, "
+        f"bf16 nets): 64 frames in {t_fuse:.3f} s = {64 / t_fuse:.2f} "
+        f"frames/s ({64 / t_all:.2f} frames/s with the exit reconcile); "
+        f"launches {counts}")
+    check_volume(out, "headline volume")
+    require(counts, ["build_shadow_dirty", "reconcile_slot",
+                     "reconcile_key"], "headline")
+    del out
+    # the exact recurrence, sharing the nets
+    cfg2 = copy.deepcopy(cfg)
+    cfg2.SETTINGS.update(frame_block=1, sem_integrate_every=1,
+                         geo_dtype="float32", dirty_shadow="off")
+    pipe2 = Pipeline(cfg2, segmenter=pipe.segmenter,
+                     fusion_net=pipe.fusion_net, device=dev)
+    short = {k: v[:16] for k, v in frames.items()}
+    warm = {k: v[:4] for k, v in frames.items()}
+    out, counts2, t_fuse, t_all = run_stream(pipe2, volume, [short], warm)
+    log(f"exact recurrence (frame_block 1, sem every 1, f32 geo, full "
+        f"shadow builds): 16 frames in {t_fuse:.3f} s = "
+        f"{16 / t_fuse:.2f} frames/s ({16 / t_all:.2f} with the exit "
+        f"reconcile); launches "
+        f"{counts2}")
+    check_volume(out, "exact-recurrence volume")
+    require(counts2, ["build_shadow", "reconcile_slot", "reconcile_key"],
+            "exact recurrence")
+    return {k: counts[k] + counts2[k] for k in counts}
+
+
+def small_reference(dev):
+    """The port on the card against the port on the CPU (plain versions):
+    64^3, 32x32, 6 frames, exact recurrence, f32 nets with TF32 off.
+    Tolerances as in tests/test_torch_pipeline.py (f32)."""
+    cfg = headline_config(32, 32)
+    cfg.FUSION_MODEL.update(growth_factor=2, compute_dtype="float32")
+    cfg.SEMANTIC_2D_MODEL.compute_dtype = "float32"
+    cfg.SETTINGS.update(frame_block=1, sem_integrate_every=1,
+                        geo_dtype="float32")
+    cpu_pipe = build_pipeline(cfg, "cpu", seed=3)
+    seg = SegmenterAdapter(copy.deepcopy(cpu_pipe.segmenter.model).to(dev))
+    gpu_pipe = Pipeline(cfg, segmenter=seg, device=dev,
+                        fusion_net=copy.deepcopy(cpu_pipe.fusion_net))
+    frames = render_frames(6, 32, 32, "cpu")
+    outs = []
+    for pipe, d in ((cpu_pipe, "cpu"), (gpu_pipe, dev)):
+        vol = headline_volume(d, (64, 64, 64))
+        outs.append(pipe.fuse_sequence(
+            vol, {k: v.to(d) for k, v in frames.items()}))
+    ref, got = outs
+    rw, gw = ref.weights, got.weights.cpu()
+    obs = rw > 0.05
+    w_err = float((gw - rw).abs().max())
+    t_err = float((got.tsdf.cpu()[obs] - ref.tsdf[obs]).abs().max())
+    lab = ref.semkey > 0
+    id_share = float((got.semantics.cpu()[lab] == ref.semantics[lab])
+                     .float().mean())
+    log(f"small reference (card vs CPU plain path, 64^3, 6 frames): "
+        f"max |dw| {w_err:.3g}, max |dtsdf| {t_err:.3g} on "
+        f"{int(obs.sum())} voxels, semantic id agreement {id_share:.4f}")
+    if not (torch.allclose(gw, rw, atol=1e-3, rtol=1e-3) and t_err <= 1e-3
+            and int(obs.sum()) > 1000 and id_share >= 0.99):
+        raise RuntimeError("card and CPU paths disagree on the small input")
+
+
+def fuse_many_run(dev):
+    """Database + Synthetic (default 84^3 grid, padded to 84x88x84)
+    through fuse_many with the headline settings at 256x256."""
+    cfg = headline_config()
+    cfg.DATA.update(n_frames=6, voxel_resolution=0.05, noise_sigma=0.01)
+    data = Synthetic(cfg.DATA, device=dev)
+    db = Database(data, cfg.DATA, device=dev)
+    pipe = build_pipeline(cfg, dev, seed=5)
+    batches = []
+    for i in range(len(data)):
+        item = data[i]
+        batches.append({k: (np.asarray(v)[None] if isinstance(v, np.ndarray)
+                            else v) for k, v in item.items()}
+                       | {"frame_id": [item["frame_id"]]})
+    t0 = time.perf_counter()
+    pipe.fuse_many(batches, db, chunk=4)
+    torch.cuda.synchronize()
+    s = data.scenes[0]
+    log(f"fuse_many: {len(batches)} frames, volume "
+        f"{tuple(db.volumes[s].num.shape)}, {time.perf_counter() - t0:.3f} s")
+    if not db.state[s]:
+        raise RuntimeError("fuse_many did not update the database")
+    check_volume(db.volumes[s], "fuse_many volume")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("torch.backends.cudnn.allow_tf32 = False, "
+        "torch.backends.cuda.matmul.allow_tf32 = False")
+
+    t0 = time.perf_counter()
+    _, info = sb.load_library()
+    log(f"build: nvcc {info['seconds']:.2f} s, loaded in "
+        f"{time.perf_counter() - t0:.2f} s ({info['path']})")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    results = check_kernels(dev)
+    launches = headline(dev)
+    small_reference(dev)
+    fuse_many_run(dev)
+
+    replaces = {"build_shadow_dirty": f"{PALLAS}:359",
+                "build_shadow": f"{PALLAS}:254",
+                "reconcile_slot": f"{PALLAS}:462",
+                "reconcile_key": f"{PALLAS}:576"}
+    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+                "replaces": replaces[name], "launches": launches[name],
+                **results[name]} for name in replaces]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,79 @@
+"""Scene volume state: Voxelgrid bbox math + device-resident SceneVolume.
+
+Port of ``segfusion_tpu/core/volume.py``. The state is the accumulator
+form: ``num`` = sum(w * tsdf update), ``weights`` = sum(w), ``semkey`` =
+packed monotonic (score, id); the reference-visible ``tsdf``,
+``semantics`` and ``scores`` views are materialised on access.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.integrate import unpack_semantic_key
+
+__all__ = ["Voxelgrid", "SceneVolume", "init_scene_volume"]
+
+
+class Voxelgrid:
+    """Host-side voxel grid: an array + bbox/origin/resolution metadata."""
+
+    def __init__(self, resolution: float):
+        self.resolution = float(resolution)
+        self.volume: Optional[np.ndarray] = None
+        self.bbox: Optional[np.ndarray] = None
+
+    def from_array(self, array: np.ndarray, bbox: np.ndarray):
+        if array.ndim != 3:
+            raise ValueError(f"expected a 3-D array, got {array.shape}")
+        self.volume = array
+        self.bbox = np.asarray(bbox, dtype=np.float64)
+        return self
+
+    @property
+    def origin(self) -> np.ndarray:
+        return self.bbox[:, 0].astype(np.float32)
+
+
+@dataclasses.dataclass
+class SceneVolume:
+    """Per-scene fusion state, tensors on one device."""
+    num: torch.Tensor           # (xs, ys, zs) f32, sum(w * v)
+    weights: torch.Tensor       # (xs, ys, zs) f32, sum(w)
+    semkey: torch.Tensor        # (xs, ys, zs) int32 packed (score, id)
+    origin: torch.Tensor        # (3,) f32
+    resolution: torch.Tensor    # () f32
+    init_value: float = 0.1
+
+    @property
+    def tsdf(self) -> torch.Tensor:
+        w = self.weights
+        return torch.where(w > 0, self.num / torch.clamp_min(w, 1e-12),
+                           float(self.init_value))
+
+    @property
+    def semantics(self) -> torch.Tensor:
+        return unpack_semantic_key(self.semkey)[1]
+
+    @property
+    def scores(self) -> torch.Tensor:
+        return unpack_semantic_key(self.semkey)[0]
+
+
+def init_scene_volume(shape: Tuple[int, int, int], origin, resolution: float,
+                      init_value: float = 0.1, device=None) -> SceneVolume:
+    """A fresh (all-zero) SceneVolume on ``device`` (default: the CPU)."""
+    shape = tuple(int(s) for s in shape)
+    return SceneVolume(
+        num=torch.zeros(shape, dtype=torch.float32, device=device),
+        weights=torch.zeros(shape, dtype=torch.float32, device=device),
+        semkey=torch.zeros(shape, dtype=torch.int32, device=device),
+        origin=torch.as_tensor(np.asarray(origin, np.float32),
+                               device=device),
+        resolution=torch.tensor(float(resolution), dtype=torch.float32,
+                                device=device),
+        init_value=float(init_value))

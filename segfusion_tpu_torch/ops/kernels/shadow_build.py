@@ -1,0 +1,304 @@
+"""Shadow-build and reconcile kernels: CUDA for the card, plain PyTorch
+beside each for the CPU and for checking.
+
+Each wrapper takes its plain version only for a tensor on the CPU; for a
+CUDA tensor it launches the hand-written kernel of ``csrc/shadow_build.cu``
+(built with nvcc for sm_90a at first use, loaded with ctypes) or raises.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+| wrapper              | TPU kernel it replaces                          |
+| -------------------- | ----------------------------------------------- |
+| build_shadow_dirty   | shadow_build.py:359 build_shadow_dirty_pallas   |
+| build_shadow         | shadow_build.py:254 build_shadow_pallas         |
+| reconcile_slot       | shadow_build.py:462 reconcile_slot_pallas       |
+| reconcile_key        | shadow_build.py:576 reconcile_key_pallas        |
+
+(paths under ``segfusion_tpu/ops/pallas/``). The first two share one CUDA
+kernel: the full build passes no dirty flags. The source note in the .cu
+file says what bounds them on the card and what the design does about it.
+
+``layout`` is a ``rowvol.RowLayout``; ``ty`` the shadow y-tile height of
+``rowvol.shadow_tiling`` (the dirty flags index (x, y-tile) tiles).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from ..geometry import pack16_numw
+
+__all__ = ["build_shadow", "build_shadow_dirty", "reconcile_slot",
+           "reconcile_key", "build_shadow_plain", "build_shadow_dirty_plain",
+           "reconcile_slot_plain", "reconcile_key_plain",
+           "shadow_from_canonical", "load_library", "launch_counts",
+           "reset_launch_counts"]
+
+_PKG = Path(__file__).resolve().parents[2]
+SOURCE = _PKG / "csrc" / "shadow_build.cu"
+BUILD_DIR = _PKG.parent / "build" / "segfusion_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+# -- plain versions -----------------------------------------------------------
+
+def reconcile_slot_plain(geo: torch.Tensor, layout):
+    """Sum the 4 neighbour-slot components back to canonical (num, w),
+    each (X, Y, Z) f32: voxel (y, z) collects comp 0 of slot (y, z), comp 1
+    of (y, z-1), comp 2 of (y-1, z), comp 3 of (y-1, z-1). A bf16 state is
+    upcast first (exact). The (z-pair) + (z-pair) association order is the
+    JAX package's (rowvol.py:302-309); bit-equality depends on it."""
+    L = layout
+    s = geo.float().reshape(L.X, L.SY, L.G, 8, 16)
+    zs = 16 * L.G
+
+    def plane(c):
+        return s[:, :, :, c, :].reshape(L.X, L.SY, zs)
+
+    def zsh(a):           # comp covers z_lo + 1 -> contribution from z - 1
+        return F.pad(a, (1, 0))[:, :, :zs]
+
+    def collect(c0, c1, c2, c3):
+        # physical y lives at padded index 1 + y: comps 0/1 of voxel y
+        # read index 1 + y, comps 2/3 (from slot row y - 1) read index y
+        return ((plane(c0)[:, 1:L.Y + 1] + zsh(plane(c1))[:, 1:L.Y + 1])
+                + (plane(c2)[:, 0:L.Y] + zsh(plane(c3))[:, 0:L.Y]))
+
+    num = collect(0, 1, 2, 3)[:, :, :L.Z].contiguous()
+    w = collect(4, 5, 6, 7)[:, :, :L.Z].contiguous()
+    return num, w
+
+
+def reconcile_key_plain(key: torch.Tensor, layout) -> torch.Tensor:
+    """Max the 4 key-slot components back to canonical (X, Y, Z) int32;
+    neighbours outside the volume count as 0."""
+    L = layout
+    s = key.reshape(L.X, L.Y, L.GK, 4, 32)
+    zs = 32 * L.GK
+
+    def plane(c):
+        return s[:, :, :, c, :].reshape(L.X, L.Y, zs)
+
+    def zsh(a):
+        return F.pad(a, (1, 0))[:, :, :zs]
+
+    def ysh(a):
+        return F.pad(a, (0, 0, 1, 0))[:, :L.Y]
+
+    k = torch.maximum(plane(0), zsh(plane(1)))
+    k = torch.maximum(k, ysh(plane(2)))
+    k = torch.maximum(k, ysh(zsh(plane(3))))
+    return k[:, :, :L.Z].contiguous()
+
+
+def shadow_from_canonical(num: torch.Tensor, w: torch.Tensor, layout
+                          ) -> torch.Tensor:
+    """Pack canonical (X, Y, Z) (num, w) into the (shadow_rows, 128) int32
+    slot shadow: lane 32 c + s of row (x, y, gk) is [P, P(z+1), P(y+1),
+    P(y+1, z+1)][c] at z = 32 gk + s, zero outside the volume."""
+    L = layout
+    zs = 32 * L.GK
+    P = F.pad(pack16_numw(num, w), (0, zs - L.Z))
+
+    def zp(a):           # P(y, z+1)
+        return F.pad(a, (0, 1))[:, :, 1:]
+
+    def yp(a):           # P(y+1, z)
+        return F.pad(a, (0, 0, 0, 1))[:, 1:]
+
+    comps = [P, zp(P), yp(P), zp(yp(P))]
+    sh = torch.stack([c.reshape(L.X, L.Y, L.GK, 32) for c in comps], dim=3)
+    return sh.reshape(L.shadow_rows, 128)
+
+
+def build_shadow_plain(geo: torch.Tensor, layout) -> torch.Tensor:
+    num, w = reconcile_slot_plain(geo, layout)
+    return shadow_from_canonical(num, w, layout)
+
+
+def build_shadow_dirty_plain(geo, prev_shadow, dirty, layout, ty: int):
+    """Rebuild the (x, y-tile) tiles whose ``dirty`` flag is set, in place
+    in ``prev_shadow`` (which is returned); clean tiles keep their words."""
+    L = layout
+    nj = L.Y // ty
+    new = build_shadow_plain(geo, L).view(L.X, nj, ty * L.GK, 128)
+    sel = dirty[:L.X * nj].reshape(L.X, nj) != 0
+    prev_shadow.view(L.X, nj, ty * L.GK, 128)[sel] = new[sel]
+    return prev_shadow
+
+
+# -- the CUDA library ---------------------------------------------------------
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError(f"nvcc not found (looked on PATH and at {nvcc})")
+    return nvcc
+
+
+@functools.lru_cache(maxsize=None)
+def load_library():
+    """Build (once per source hash) and load the kernel library.
+
+    Returns ``(lib, info)``; ``info`` holds the .so path, the build
+    seconds (0.0 when a build with this hash already existed) and nvcc's
+    ``-Xptxas -v`` report. A failed build raises."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    so = BUILD_DIR / f"shadow_build_{tag[:16]}.so"
+    seconds, log = 0.0, ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(SOURCE)], capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                               f"{SOURCE}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+        log = proc.stdout + proc.stderr
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sf_shadow_build.argtypes = [p, i, p, p, i, i, i, i, i, i, i, p]
+    lib.sf_reconcile_slot.argtypes = [p, i, p, p, i, i, i, i, i, p]
+    lib.sf_reconcile_key.argtypes = [p, p, i, i, i, i, p]
+    for fn in (lib.sf_shadow_build, lib.sf_reconcile_slot,
+               lib.sf_reconcile_key):
+        fn.restype = i
+    return lib, {"path": str(so), "seconds": seconds, "log": log}
+
+
+def _check(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def _device_of(t: torch.Tensor, name: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type
+
+
+def _check_geo(geo: torch.Tensor, layout):
+    if geo.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"geo must be float32 or bfloat16, got {geo.dtype}")
+    if tuple(geo.shape) != (layout.geo_rows, 128) or not geo.is_contiguous():
+        raise ValueError(f"geo must be a contiguous ({layout.geo_rows}, 128)"
+                         f" tensor, got {tuple(geo.shape)}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_shadow(geo, out, dirty, layout, ty: int):
+    L = layout
+    if L.Y % ty or L.X * (L.Y // ty) > 65535:
+        raise ValueError(f"bad shadow tiling TY={ty} for {L}")
+    lib, _ = load_library()
+    _check(lib.sf_shadow_build(
+        geo.data_ptr(), int(geo.dtype == torch.bfloat16), out.data_ptr(),
+        None if dirty is None else dirty.data_ptr(), L.X, L.Y, L.Z, L.G,
+        L.GK, L.SY, ty, _stream(geo)), "shadow_build_kernel")
+
+
+# -- wrappers -----------------------------------------------------------------
+
+def build_shadow(geo: torch.Tensor, layout, ty: int) -> torch.Tensor:
+    """Slot geo state -> (shadow_rows, 128) int32 gather shadow."""
+    if _device_of(geo, "build_shadow") == "cpu":
+        return build_shadow_plain(geo, layout)
+    _check_geo(geo, layout)
+    out = torch.empty((layout.shadow_rows, 128), dtype=torch.int32,
+                      device=geo.device)
+    _launch_shadow(geo, out, None, layout, ty)
+    build_shadow.launches += 1
+    return out
+
+
+def build_shadow_dirty(geo: torch.Tensor, prev_shadow: torch.Tensor,
+                       dirty: torch.Tensor, layout, ty: int) -> torch.Tensor:
+    """Rebuild only the dirty (x, y-tile) tiles of ``prev_shadow``, in
+    place (the Pallas kernel aliases its previous shadow into the output
+    the same way); returns ``prev_shadow``. ``dirty`` is the (X * NJ + 1,)
+    int32 mask of ``rowvol.dirty_tile_mask``."""
+    if _device_of(geo, "build_shadow_dirty") == "cpu":
+        return build_shadow_dirty_plain(geo, prev_shadow, dirty, layout, ty)
+    _check_geo(geo, layout)
+    L = layout
+    if (prev_shadow.dtype != torch.int32 or not prev_shadow.is_contiguous()
+            or tuple(prev_shadow.shape) != (L.shadow_rows, 128)):
+        raise ValueError("prev_shadow must be a contiguous "
+                         f"({L.shadow_rows}, 128) int32 tensor")
+    if (dirty.dtype != torch.int32 or not dirty.is_contiguous()
+            or dirty.numel() < L.X * (L.Y // ty)):
+        raise ValueError("dirty must be a contiguous int32 tile mask")
+    if prev_shadow.device != geo.device or dirty.device != geo.device:
+        raise ValueError("geo, prev_shadow and dirty must share a device")
+    _launch_shadow(geo, prev_shadow, dirty, layout, ty)
+    build_shadow_dirty.launches += 1
+    return prev_shadow
+
+
+def reconcile_slot(geo: torch.Tensor, layout):
+    """Slot geo state -> canonical (num, w), each (X, Y, Z) f32."""
+    if _device_of(geo, "reconcile_slot") == "cpu":
+        return reconcile_slot_plain(geo, layout)
+    _check_geo(geo, layout)
+    L = layout
+    num = torch.empty((L.X, L.Y, L.Z), dtype=torch.float32,
+                      device=geo.device)
+    w = torch.empty_like(num)
+    lib, _ = load_library()
+    _check(lib.sf_reconcile_slot(
+        geo.data_ptr(), int(geo.dtype == torch.bfloat16), num.data_ptr(),
+        w.data_ptr(), L.X, L.Y, L.Z, L.G, L.SY, _stream(geo)),
+        "reconcile_slot_kernel")
+    reconcile_slot.launches += 1
+    return num, w
+
+
+def reconcile_key(key: torch.Tensor, layout) -> torch.Tensor:
+    """Key slot state -> canonical (X, Y, Z) int32 packed keys."""
+    if _device_of(key, "reconcile_key") == "cpu":
+        return reconcile_key_plain(key, layout)
+    L = layout
+    if (key.dtype != torch.int32 or not key.is_contiguous()
+            or tuple(key.shape) != (L.key_rows, 128)):
+        raise ValueError(f"key must be a contiguous ({L.key_rows}, 128) "
+                         "int32 tensor")
+    out = torch.empty((L.X, L.Y, L.Z), dtype=torch.int32, device=key.device)
+    lib, _ = load_library()
+    _check(lib.sf_reconcile_key(key.data_ptr(), out.data_ptr(), L.X, L.Y,
+                                L.Z, L.GK, _stream(key)),
+           "reconcile_key_kernel")
+    reconcile_key.launches += 1
+    return out
+
+
+_WRAPPERS = (build_shadow_dirty, build_shadow, reconcile_slot, reconcile_key)
+
+
+def reset_launch_counts():
+    for fn in _WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+
+
+reset_launch_counts()
