@@ -8,21 +8,36 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from ``segfusion_tpu_torch/csrc`` (nvcc,
-   sm_90a) and their ptxas report;
-3. each kernel against its plain PyTorch version at 448^3, bf16 and f32 geo
-   state (a random canonical volume entered into slot form, then a few
-   ``integrate_rows`` updates): shadow builds bit-exact, reconcile slot
-   bit-exact, reconcile key exact; kernel and plain times from CUDA events;
+   sm_90a, one process per source, started together) and their ptxas
+   report, and of the host marching cubes (g++);
+3. each slot kernel against its plain PyTorch version at 448^3, bf16 and
+   f32 geo state (a random canonical volume entered into slot form, then
+   a few ``integrate_rows`` updates): shadow builds bit-exact, reconcile
+   slot bit-exact, reconcile key exact; kernel and plain times from CUDA
+   events;
+3b. the median kernel (K5) against its plain version on a 448^3 uint8
+   label volume, sizes 5 and 3: bit-exact; times and voxels/s;
 4. the headline configuration through ``Pipeline.fuse_sequence_rows``:
    AdapNet++ stage 2 + FusionNet v3 (growth factor 6, semantics), 448^3
    at 1 cm, 256x256 frames, frame_block 4, sem_integrate_every 8, bf16
    geo, nets in bf16, seeded random weights; 2 chunks of 32 frames, then
-   the exit reconcile. Launch counts are reset before and read after;
+   the exit reconcile;
+4b. the evaluation of that fused 448^3 volume through the port's Database
+   (gt: the same synthetic room sampled at 1 cm): ``filter``,
+   ``filter_semantics`` (one K5 launch), ``evaluate``,
+   ``evaluate_semantics``, ``evaluate_fscore``, ``get_mesh`` and a ply
+   ``save``, each timed;
 5. the exact recurrence (frame_block 1, every frame's semantics, f32 geo,
    dirty-shadow carry off, so the full shadow build runs);
 6. the same small stream (64^3, 32x32, f32 nets, TF32 off) on the card and
    on the CPU (the plain versions), compared;
-7. ``fuse_many`` through the port's Database over its Synthetic dataset.
+7. ``fuse_many`` through the port's Database over its Synthetic dataset;
+8. the evaluation entry point ``segfusion_tpu_torch.test_fusion`` on the
+   configuration of configs/fusion/synthetic_tpu_demo_joint.yaml (16
+   frames instead of 60).
+
+Launch counts are reset just before each main-path run (4, 4b, 5, 8) and
+read just after; the kernel checks' launches are not counted.
 
 Then one JSON line of per-kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result where
@@ -35,24 +50,34 @@ import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from segfusion_tpu_torch import test_fusion as entry
+from segfusion_tpu_torch.config import default_config
 from segfusion_tpu_torch.core.database import Database
 from segfusion_tpu_torch.core.pipeline import Pipeline
-from segfusion_tpu_torch.data.synthetic import Synthetic
+from segfusion_tpu_torch.core.volume import Voxelgrid
+from segfusion_tpu_torch.data.synthetic import Synthetic, SyntheticScene
 from segfusion_tpu_torch.headline import (HEADLINE_SHAPE, build_pipeline,
                                           headline_config, headline_volume,
                                           render_frames)
 from segfusion_tpu_torch.models.adapnet import SegmenterAdapter
 from segfusion_tpu_torch.ops import rowvol
 from segfusion_tpu_torch.ops.integrate import pack_semantic_key
+from segfusion_tpu_torch.ops.kernels import _build
+from segfusion_tpu_torch.ops.kernels import median3d as k5
 from segfusion_tpu_torch.ops.kernels import shadow_build as sb
+from segfusion_tpu_torch.utils.mesh import MCUBES_SOURCE
 
 PALLAS = "segfusion_tpu/ops/pallas/shadow_build.py"
 SOURCE = "segfusion_tpu_torch/csrc/shadow_build.cu"
+K5_PALLAS = "segfusion_tpu/ops/pallas/median3d.py:104"
+K5_SOURCE = "segfusion_tpu_torch/csrc/median3d.cu"
 
 
 def log(msg: str):
@@ -65,6 +90,15 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def reset_counts():
+    sb.reset_launch_counts()
+    k5.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    return sb.launch_counts() | k5.launch_counts()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -204,7 +238,55 @@ def check_kernels(dev):
     return results
 
 
-# -- phases 4-7: the main path ------------------------------------------------
+# -- phase 3b: the median kernel against its plain version --------------------
+
+def label_volume(shape, dev, n_classes=30, block=16, salt=0.1, seed=0):
+    """uint8 labels with spatial structure: ``n_classes`` classes over
+    block^3 regions, plus ``salt`` of the voxels set to random classes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    coarse = torch.randint(0, n_classes, [-(-d // block) for d in shape],
+                           generator=g, device=dev, dtype=torch.uint8)
+    vol = coarse.repeat_interleave(block, 0).repeat_interleave(block, 1) \
+        .repeat_interleave(block, 2)[:shape[0], :shape[1], :shape[2]]
+    noise = torch.randint(0, n_classes, shape, generator=g, device=dev,
+                          dtype=torch.uint8)
+    salted = torch.rand(shape, generator=g, device=dev) < salt
+    return torch.where(salted, noise, vol).contiguous()
+
+
+def check_median(dev):
+    """K5 bit-exact to its plain version at 448^3 for sizes 5 and 3;
+    returns the size-5 result for the JSON line."""
+    vol = label_volume(HEADLINE_SHAPE, dev)
+    vox = vol.numel()
+    result = None
+    for size in (5, 3):
+        got = k5.median_filter3d(vol, size)
+        want = k5.median_filter3d_plain(vol, size)
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want)
+        err = max_abs(got, want)
+        changed = float((got != vol).float().mean())
+        del got, want
+        k_ms = cuda_ms(lambda: k5.median_filter3d(vol, size), 20)
+        p_ms = cuda_ms(lambda: k5.median_filter3d_plain(vol, size), 2,
+                       warmup=1)
+        log(f"median_filter3d size {size} at 448^3 uint8 (30 classes, 10% "
+            f"salt; {changed:.3f} of voxels changed): exact={exact} "
+            f"max_abs_err={err} kernel {k_ms:.4f} ms "
+            f"({vox / k_ms / 1e6:.4g} Gvoxel/s)  plain {p_ms:.4f} ms "
+            f"({vox / p_ms / 1e6:.4g} Gvoxel/s)")
+        if not exact:
+            raise RuntimeError(f"median_filter3d size {size} disagrees with "
+                               "its plain version")
+        if size == 5:
+            result = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+    del vol
+    torch.cuda.empty_cache()
+    return result
+
+
+# -- phases 4-8: the main path ------------------------------------------------
 
 def run_stream(pipe, volume, chunks, warm=None):
     """Enter, fuse ``chunks`` (frame dicts) through fuse_sequence_rows,
@@ -216,7 +298,7 @@ def run_stream(pipe, volume, chunks, warm=None):
         pipe.fuse_sequence_rows(layout, s, warm)
         del s
     torch.cuda.synchronize()
-    sb.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     s = pipe._new_stream(layout, pipe._enter_rows(layout, volume))
     for frames in chunks:
@@ -226,7 +308,7 @@ def run_stream(pipe, volume, chunks, warm=None):
     out = pipe._exit_rows(layout, s.rv)
     del s
     torch.cuda.synchronize()
-    counts = sb.launch_counts()
+    counts = read_counts()
     return out, counts, t_fuse, time.perf_counter() - t0
 
 
@@ -263,6 +345,7 @@ def headline(dev):
     check_volume(out, "headline volume")
     require(counts, ["build_shadow_dirty", "reconcile_slot",
                      "reconcile_key"], "headline")
+    counts_eval = evaluate_headline(dev, cfg, out)
     del out
     # the exact recurrence, sharing the nets
     cfg2 = copy.deepcopy(cfg)
@@ -281,7 +364,95 @@ def headline(dev):
     check_volume(out, "exact-recurrence volume")
     require(counts2, ["build_shadow", "reconcile_slot", "reconcile_key"],
             "exact recurrence")
-    return {k: counts[k] + counts2[k] for k in counts}
+    return {k: counts[k] + counts_eval[k] + counts2[k] for k in counts}
+
+
+class HeadlineRoom:
+    """The headline's scene as a dataset for the Database: the gt TSDF and
+    labels of SyntheticScene(seed=0, half=2.2) on the 448^3 grid at 1 cm
+    with origin -2.24 (pad 4), sampled in x-slabs on a thread pool (the
+    whole grid's float64 coordinates would take several GB)."""
+
+    scenes = ["headline_room"]
+
+    def get_grid(self, scene_id, truncation, semantic_grid=False):
+        scene = SyntheticScene(seed=0, half=2.2)
+        res, pad, n = 0.01, 4, HEADLINE_SHAPE[0]
+        lo = -scene.half - pad * res
+        ax = lo + np.arange(n) * res
+        sdf = np.empty((n, n, n), np.float32)
+        labels = np.empty((n, n, n), np.uint8)
+
+        def slab(x0, sx=16):
+            x, y, z = np.meshgrid(ax[x0:x0 + sx], ax, ax, indexing="ij")
+            d, lab = scene.sdf_and_labels(np.stack([x, y, z], axis=-1))
+            sdf[x0:x0 + sx] = np.clip(d, -truncation, truncation)
+            labels[x0:x0 + sx] = lab
+
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(slab, range(0, n, 16)))
+        bbox = np.array([[lo, lo + n * res]] * 3)
+        return (Voxelgrid(res).from_array(sdf, bbox),
+                Voxelgrid(res).from_array(labels, bbox)
+                if semantic_grid else None)
+
+
+def evaluate_headline(dev, cfg, volume):
+    """The evaluation path on the fused 448^3 headline volume: outlier
+    filter, label median (K5), the three metric families, the semantic
+    mesh and a ply save. Returns the launch counts of this run."""
+    t0 = time.perf_counter()
+    data_cfg = copy.deepcopy(cfg.DATA)
+    data_cfg.update(semantic_grid=True, n_classes=30)
+    db = Database(HeadlineRoom(), data_cfg, device=dev)
+    s = db.scenes[0]
+    if db.volumes[s].num.shape != volume.num.shape:
+        raise RuntimeError("the gt grid does not match the headline volume")
+    db.update(s, volume)
+    log(f"evaluation at 448^3: gt built in {time.perf_counter() - t0:.3f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as out_dir:
+        metrics, mesh, counts = run_stages(db, s, out_dir)
+    n_verts, n_faces = len(mesh[0]), len(mesh[1])
+    log(f"  mesh: {n_verts} vertices, {n_faces} faces; launches {counts}")
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad or len(metrics) != 9:
+        raise RuntimeError(f"evaluation: missing or non-finite metrics "
+                           f"{bad or metrics}")
+    if n_faces == 0 or not np.isfinite(mesh[0]).all():
+        raise RuntimeError("evaluation: empty or non-finite mesh")
+    if counts["median_filter3d"] != 1:
+        raise RuntimeError(f"evaluation: median kernel launched "
+                           f"{counts['median_filter3d']} times, not once")
+    return counts
+
+
+def run_stages(db, s, out_dir):
+    """Each evaluation stage once, timed; (metrics, mesh, launch counts)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    stages = [
+        ("filter(2.0)", lambda: db.filter(2.0)),
+        ("filter_semantics(5)", lambda: db.filter_semantics(5)),
+        ("evaluate", lambda: db.evaluate("test")[0]),
+        ("evaluate_semantics", lambda: db.evaluate_semantics("test")[0]),
+        ("evaluate_fscore", lambda: db.evaluate_fscore(0.05)[0]),
+        ("get_mesh(semantics=True)", lambda: db.get_mesh(s, True)),
+        # ply: the card's machine may have no h5py for the hdf5 volumes
+        ("save(ply)", lambda: db.save(out_dir, "ply", s)),
+    ]
+    metrics, mesh = {}, None
+    for name, fn in stages:
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if isinstance(r, dict):
+            metrics.update(r)
+        elif name.startswith("get_mesh"):
+            mesh = r
+        log(f"  {name:26s} {dt:.3f} s" + (f"  {r}" if isinstance(r, dict)
+                                          else ""))
+    return metrics, mesh, read_counts()
 
 
 def small_reference(dev):
@@ -344,6 +515,42 @@ def fuse_many_run(dev):
     check_volume(db.volumes[s], "fuse_many volume")
 
 
+def entry_point(dev):
+    """``segfusion_tpu_torch.test_fusion`` with the configuration of
+    configs/fusion/synthetic_tpu_demo_joint.yaml, cut to 16 frames; hdf5
+    saving replaced by ply (the card's machine may have no h5py)."""
+    cfg = default_config()
+    cfg.SETTINGS.update(save_mode="ply", num_workers=0)
+    cfg.FUSION_MODEL.update(name="v3", n_points=9, n_tail_points=7,
+                            growth_factor=6, use_semantics=True,
+                            compute_dtype="bfloat16")
+    cfg.SEMANTIC_2D_MODEL.update(stage=1, n_classes=8)
+    cfg.TESTING.update(outlier_filter_val=1)
+    cfg.DATA.update(dataset="Synthetic", semantics="class8",
+                    semantic_strategy="gt", semantic_grid=True,
+                    input="tof_depth", resx=256, resy=256, n_frames=16,
+                    n_scenes=1, voxel_resolution=0.05, noise_sigma=0.01,
+                    init_value=0.24, pad=2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as path:
+        cfg.SETTINGS.experiment_path = path
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = entry.test_fusion(cfg, dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    log(f"test_fusion entry point (synthetic_tpu_demo_joint, 16 frames, "
+        f"84x88x84): {time.perf_counter() - t0:.3f} s; launches {counts}")
+    log(f"  eval_results {json.dumps(results)}")
+    bad = [k for k, v in results.items() if not np.isfinite(v)]
+    if bad or len(results) != 9:
+        raise RuntimeError(f"test_fusion: missing or non-finite metrics "
+                           f"{bad or results}")
+    require(counts, ["median_filter3d", "build_shadow_dirty",
+                     "reconcile_slot", "reconcile_key"], "test_fusion")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -359,23 +566,34 @@ def main() -> int:
         "torch.backends.cuda.matmul.allow_tf32 = False")
 
     t0 = time.perf_counter()
-    _, info = sb.load_library()
-    log(f"build: nvcc {info['seconds']:.2f} s, loaded in "
-        f"{time.perf_counter() - t0:.2f} s ({info['path']})")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    builds = [lambda: _build.load_library("shadow_build"),
+              lambda: _build.load_library("median3d"),
+              lambda: _build.load_host_library(MCUBES_SOURCE)]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        infos = [info for _, info in pool.map(lambda b: b(), builds)]
+    log(f"build: {len(infos)} libraries in parallel, "
+        f"{time.perf_counter() - t0:.2f} s")
+    for info in infos:
+        log(f"  {info['path']}: compiler {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    ptxas: {line.strip()}")
 
     results = check_kernels(dev)
+    results["median_filter3d"] = check_median(dev)
     launches = headline(dev)
     small_reference(dev)
     fuse_many_run(dev)
+    for k, n in entry_point(dev).items():
+        launches[k] += n
 
     replaces = {"build_shadow_dirty": f"{PALLAS}:359",
                 "build_shadow": f"{PALLAS}:254",
                 "reconcile_slot": f"{PALLAS}:462",
-                "reconcile_key": f"{PALLAS}:576"}
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+                "reconcile_key": f"{PALLAS}:576",
+                "median_filter3d": K5_PALLAS}
+    kernels = [{"name": name, "route": "cuda",
+                "source": K5_SOURCE if name == "median_filter3d" else SOURCE,
                 "replaces": replaces[name], "launches": launches[name],
                 **results[name]} for name in replaces]
     print(json.dumps({"kernels": kernels}))

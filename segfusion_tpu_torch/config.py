@@ -1,7 +1,7 @@
 """Config: attribute-accessible nested dict with the slice's defaults.
 
-Port of ``segfusion_tpu/config.py`` for the sections the inference slice
-reads. ``yaml`` is imported only by :func:`load_config`.
+Port of ``segfusion_tpu/config.py`` for the sections the inference and
+evaluation slices read. ``yaml`` is imported only by :func:`load_config`.
 """
 
 from __future__ import annotations
@@ -10,7 +10,8 @@ import copy
 import os
 from typing import Any, Mapping
 
-__all__ = ["Config", "load_config", "default_config"]
+__all__ = ["Config", "load_config", "default_config", "with_defaults",
+           "get_data_config"]
 
 
 class Config(dict):
@@ -39,10 +40,18 @@ class Config(dict):
     def __deepcopy__(self, memo):
         return Config(copy.deepcopy(dict(self), memo))
 
+    def to_dict(self) -> dict:
+        """Plain nested dicts (for a json snapshot of the config)."""
+        return {k: v.to_dict() if isinstance(v, Config) else v
+                for k, v in self.items()}
+
 
 _DEFAULTS = {
     "SETTINGS": {
         "seed": 1911,
+        "num_workers": 0,
+        "experiment_path": "workspace/default",
+        "save_mode": "test",
     },
     "FUSION_MODEL": {
         "name": "v3",
@@ -56,6 +65,16 @@ _DEFAULTS = {
         "stage": 1,
         "n_classes": 30,
     },
+    "TESTING": {
+        "test_batch_size": 1,
+        "test_shuffle": False,
+        "test_ratio": 1,
+        "outlier_filter_val": 2,
+        "fscore_threshold": 0.05,
+        "sequence_chunk": 16,
+        "fusion_model_path": None,
+        "semantic_2d_model_path": None,
+    },
     "DATA": {
         "dataset": "Synthetic",
         "semantics": None,
@@ -66,6 +85,8 @@ _DEFAULTS = {
         "resy": 256,
         "init_value": 0.1,
         "pad": 2,
+        "n_classes": 0,
+        "pad_shape_multiple": 1,
     },
 }
 
@@ -82,6 +103,33 @@ def _merge_defaults(cfg: Config, defaults: Mapping) -> Config:
 def default_config() -> Config:
     """A config holding only the defaults."""
     return _merge_defaults(Config({}), _DEFAULTS)
+
+
+def with_defaults(cfg: Config) -> Config:
+    """Fill the defaults into ``cfg`` where a key is missing or None, in
+    place; returns ``cfg``."""
+    return _merge_defaults(cfg, _DEFAULTS)
+
+
+# mode -> (DATA scene-list key, config section, frame-ratio key)
+_MODES = {"train": ("train_scene_list", "TRAINING", "train_ratio"),
+          "val": ("val_scene_list", "TRAINING", "val_ratio"),
+          "test": ("test_scene_list", "TESTING", "test_ratio")}
+
+
+def get_data_config(config: Config, mode: str) -> Config:
+    """The per-mode (train/val/test) view of the DATA section: its scene
+    list and frame ratio, and the class count when semantics are on."""
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    scene_key, section, ratio_key = _MODES[mode]
+    data = copy.deepcopy(config.DATA)
+    data.mode = mode
+    data.scene_list = data.get(scene_key)
+    data.frame_ratio = config.get(section, {}).get(ratio_key, 1)
+    if config.DATA.get("semantics"):
+        data.n_classes = config.SEMANTIC_2D_MODEL.n_classes
+    return data
 
 
 def load_config(path: str) -> Config:

@@ -56,18 +56,18 @@ class SyntheticScene:
                 _sphere_sdf(pts, self.sphere_c, self.sphere_r),
                 _box_sdf(pts, self.box_c, self.box_h))
 
-    def sdf(self, pts: np.ndarray) -> np.ndarray:
-        s_room, s_sph, s_box = self._parts(pts)
-        return np.minimum(np.minimum(s_room, s_sph), s_box)
-
     def surface_labels(self, pts: np.ndarray) -> np.ndarray:
         """Nearest-part label regardless of sign."""
         stack = np.stack(self._parts(pts), axis=-1)
         return (np.argmin(stack, axis=-1) + 1).astype(np.uint8)
 
-    def labels(self, pts: np.ndarray) -> np.ndarray:
-        lab = self.surface_labels(pts)
-        return np.where(self.sdf(pts) > 0, 0, lab).astype(np.uint8)
+    def sdf_and_labels(self, pts: np.ndarray):
+        """The SDF (the nearest part's) and the labels (the nearest part's
+        inside the material, 0 in free space) at ``pts``."""
+        stack = np.stack(self._parts(pts), axis=-1)
+        sdf = stack.min(axis=-1)
+        lab = np.where(sdf > 0, 0, np.argmin(stack, axis=-1) + 1)
+        return sdf, lab.astype(np.uint8)
 
     def grid(self, resolution: float, truncation: float, pad: int = 2):
         """Ground-truth TSDF (+ labels) sampled on a padded voxel grid."""
@@ -76,11 +76,11 @@ class SyntheticScene:
         n = int(round((hi - lo) / resolution))
         ax = lo + np.arange(n) * resolution
         x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
-        pts = np.stack([x, y, z], axis=-1)
-        sdf = np.clip(self.sdf(pts), -truncation, truncation)
+        sdf, labels = self.sdf_and_labels(np.stack([x, y, z], axis=-1))
+        sdf = np.clip(sdf, -truncation, truncation)
         bbox = np.array([[lo, hi], [lo, hi], [lo, hi]])
         g = Voxelgrid(resolution).from_array(sdf.astype(np.float32), bbox)
-        gl = Voxelgrid(resolution).from_array(self.labels(pts), bbox)
+        gl = Voxelgrid(resolution).from_array(labels, bbox)
         return g, gl
 
     def camera_poses(self, n_frames: int, radius_frac: float = 0.45
@@ -191,3 +191,6 @@ class Synthetic:
         g, gl = self._scene_objs[scene_id].grid(self.resolution,
                                                 initial_value, self.pad)
         return (g, gl if semantic_grid else None)
+
+    def create_grid(self, scene_id: str, initial_value: float):
+        return self.get_grid(scene_id, initial_value, False)

@@ -3,8 +3,9 @@ beside each for the CPU and for checking.
 
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the hand-written kernel of ``csrc/shadow_build.cu``
-(built with nvcc for sm_90a at first use, loaded with ctypes) or raises.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+(built with nvcc for sm_90a at first use by ``_build``, loaded with
+ctypes) or raises. Each wrapper counts its kernel launches in
+``<wrapper>.launches``.
 
 | wrapper              | TPU kernel it replaces                          |
 | -------------------- | ----------------------------------------------- |
@@ -25,29 +26,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 from ..geometry import pack16_numw
+from . import _build
 
 __all__ = ["build_shadow", "build_shadow_dirty", "reconcile_slot",
            "reconcile_key", "build_shadow_plain", "build_shadow_dirty_plain",
            "reconcile_slot_plain", "reconcile_key_plain",
-           "shadow_from_canonical", "load_library", "launch_counts",
-           "reset_launch_counts"]
-
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "shadow_build.cu"
-BUILD_DIR = _PKG.parent / "build" / "segfusion_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+           "shadow_from_canonical", "launch_counts", "reset_launch_counts"]
 
 
 # -- plain versions -----------------------------------------------------------
@@ -139,38 +128,10 @@ def build_shadow_dirty_plain(geo, prev_shadow, dirty, layout, ty: int):
 
 # -- the CUDA library ---------------------------------------------------------
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError(f"nvcc not found (looked on PATH and at {nvcc})")
-    return nvcc
-
-
 @functools.lru_cache(maxsize=None)
-def load_library():
-    """Build (once per source hash) and load the kernel library.
-
-    Returns ``(lib, info)``; ``info`` holds the .so path, the build
-    seconds (0.0 when a build with this hash already existed) and nvcc's
-    ``-Xptxas -v`` report. A failed build raises."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"shadow_build_{tag[:16]}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
-                               f"{SOURCE}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-        log = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(so))
+def _lib():
+    """``csrc/shadow_build.cu``, built at first use, with its signatures."""
+    lib, _ = _build.load_library("shadow_build")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sf_shadow_build.argtypes = [p, i, p, p, i, i, i, i, i, i, i, p]
     lib.sf_reconcile_slot.argtypes = [p, i, p, p, i, i, i, i, i, p]
@@ -178,7 +139,7 @@ def load_library():
     for fn in (lib.sf_shadow_build, lib.sf_reconcile_slot,
                lib.sf_reconcile_key):
         fn.restype = i
-    return lib, {"path": str(so), "seconds": seconds, "log": log}
+    return lib
 
 
 def _check(rc: int, name: str):
@@ -208,7 +169,7 @@ def _launch_shadow(geo, out, dirty, layout, ty: int):
     L = layout
     if L.Y % ty or L.X * (L.Y // ty) > 65535:
         raise ValueError(f"bad shadow tiling TY={ty} for {L}")
-    lib, _ = load_library()
+    lib = _lib()
     _check(lib.sf_shadow_build(
         geo.data_ptr(), int(geo.dtype == torch.bfloat16), out.data_ptr(),
         None if dirty is None else dirty.data_ptr(), L.X, L.Y, L.Z, L.G,
@@ -262,7 +223,7 @@ def reconcile_slot(geo: torch.Tensor, layout):
     num = torch.empty((L.X, L.Y, L.Z), dtype=torch.float32,
                       device=geo.device)
     w = torch.empty_like(num)
-    lib, _ = load_library()
+    lib = _lib()
     _check(lib.sf_reconcile_slot(
         geo.data_ptr(), int(geo.dtype == torch.bfloat16), num.data_ptr(),
         w.data_ptr(), L.X, L.Y, L.Z, L.G, L.SY, _stream(geo)),
@@ -281,7 +242,7 @@ def reconcile_key(key: torch.Tensor, layout) -> torch.Tensor:
         raise ValueError(f"key must be a contiguous ({L.key_rows}, 128) "
                          "int32 tensor")
     out = torch.empty((L.X, L.Y, L.Z), dtype=torch.int32, device=key.device)
-    lib, _ = load_library()
+    lib = _lib()
     _check(lib.sf_reconcile_key(key.data_ptr(), out.data_ptr(), L.X, L.Y,
                                 L.Z, L.GK, _stream(key)),
            "reconcile_key_kernel")

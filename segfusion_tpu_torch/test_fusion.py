@@ -1,0 +1,116 @@
+"""Frame-stream inference, evaluation and mesh export for the port.
+
+    python -m segfusion_tpu_torch.test_fusion --config configs/fusion/<name>.yaml
+
+Counterpart of the JAX package's ``test_fusion.py``: stream every test
+frame through ``Pipeline.fuse_many``, outlier-filter the volumes,
+median-filter the label volumes, log the geometry, mesh F-score and
+semantic metrics, and save hdf5 volumes and ply meshes into a timestamped
+workspace under SETTINGS.experiment_path. Runs on CUDA when a card is
+visible, else on the CPU (the kernels' plain versions).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from segfusion_tpu.utils.workspace import get_workspace
+
+from .config import get_data_config, with_defaults
+from .core.database import Database
+from .core.pipeline import Pipeline
+from .data import PrefetchLoader, get_data
+
+__all__ = ["test_fusion"]
+
+
+def test_fusion(config, device=None, fusion_net=None, segmenter=None):
+    """Fuse, filter, evaluate and save the test split of ``config`` (the
+    JAX package's schema; missing keys take the port's defaults, filled in
+    place). ``fusion_net`` / ``segmenter``: loaded nets (the segmenter a
+    ``models.adapnet.SegmenterAdapter`` on ``device``); without a fusion
+    net one is built with random weights from seed 0. Checkpoint paths in
+    TESTING are not read yet. Returns the metrics dict."""
+    with_defaults(config)
+    device = torch.device(device if device is not None else "cpu")
+    testing = config.TESTING
+    workspace = get_workspace(config)
+    test_cfg = get_data_config(config, "test")
+    dataset = get_data(config.DATA.dataset, test_cfg, device=device)
+    loader = PrefetchLoader(dataset, batch_size=testing.test_batch_size,
+                            shuffle=testing.test_shuffle,
+                            num_workers=config.SETTINGS.num_workers)
+    database = Database(dataset, test_cfg, device=device)
+
+    if (segmenter is None and config.DATA.semantics
+            and config.DATA.semantic_strategy == "predict"):
+        if not testing.semantic_2d_model_path:
+            raise ValueError("semantic_strategy 'predict' needs "
+                             "TESTING.semantic_2d_model_path")
+        raise NotImplementedError(
+            "loading Flax checkpoints comes with the training slice "
+            "(ROADMAP Queue 1 #2); pass a loaded segmenter instead")
+    if fusion_net is None:
+        if testing.fusion_model_path:
+            raise NotImplementedError(
+                "loading Flax checkpoints comes with the training slice "
+                "(ROADMAP Queue 1 #2); pass a loaded fusion_net instead")
+        # the Pipeline draws the weights from seed 0
+        workspace.log("WARNING: no fusion checkpoint given -- "
+                      "running with random weights", "test")
+    pipeline = Pipeline(config, segmenter=segmenter, fusion_net=fusion_net,
+                        device=device)
+
+    chunk = int(testing.sequence_chunk or 1)
+    if chunk <= 1:
+        raise NotImplementedError(
+            "per-frame fusion (TESTING.sequence_chunk <= 1) is not ported "
+            "(ROADMAP Queue 1 #5); use sequence_chunk > 1")
+    pipeline.fuse_many(loader, database, chunk=chunk)
+    workspace.log(f"fused {len(dataset)} frames (chunks of {chunk})", "test")
+
+    database.filter(value=float(testing.outlier_filter_val))
+    if config.DATA.semantics:
+        database.filter_semantics(5)
+
+    eval_results, _ = database.evaluate("test", workspace)
+    workspace.log("--- geometry metrics ---", "test")
+    for k, v in eval_results.items():
+        workspace.log(f"{k}: {v}", "test")
+    fscore_thr = float(testing.fscore_threshold)
+    f_agg, _ = database.evaluate_fscore(threshold=fscore_thr,
+                                        workspace=workspace)
+    workspace.log(f"--- reconstruction F-score (tau={fscore_thr}m) ---",
+                  "test")
+    for k, v in f_agg.items():
+        workspace.log(f"{k}: {v}", "test")
+        eval_results[f"mesh_{k}"] = v
+    if config.DATA.semantics and config.DATA.semantic_grid:
+        sem_results, _ = database.evaluate_semantics("test", workspace)
+        workspace.log("--- semantic metrics ---", "test")
+        for k, v in sem_results.items():
+            workspace.log(f"{k}: {v}", "test")
+            eval_results[f"sem_{k}"] = v
+
+    for scene in database.scenes:
+        if database.state[scene]:
+            database.save(workspace.output_path,
+                          save_mode=config.SETTINGS.save_mode,
+                          scene_id=scene)
+    workspace.log(f"artifacts saved to {workspace.output_path}", "test")
+    return eval_results
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--config", required=True)
+    args = parser.parse_args(argv)
+    from .config import load_config
+    test_fusion(load_config(args.config),
+                device="cuda" if torch.cuda.is_available() else "cpu")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,143 @@
+"""Port parity for the evaluation entry point: the JAX package's
+``test_fusion.test_fusion`` against ``segfusion_tpu_torch.test_fusion``
+on configs/fusion/synthetic_semantic.yaml (FusionNet v3 with the semantic
+input, gt labels, 10 frames of 48x48 into a 44x48x44 volume), on the CPU.
+
+Both get the FusionNet parameters that the JAX entry point draws
+(``init_fusion_params(PRNGKey(0), 48, 48)``) and the same frames: the
+port's run reads the JAX package's Synthetic dataset, because the two
+ray marchers may pick neighbouring voxels on ~1% of pixels
+(tests/test_torch_pipeline.py), which would move whole voxels across the
+outlier filter. What remains is the nets' and scatter-add's f32
+summation order (tsdf ~3e-6): geometry metrics within 1e-4 absolute,
+semantic metrics exact (gt labels, the same observed mask), mesh F-score
+within 0.01 (vertices move by ~1e-6 m against a 0.05 m threshold).
+"""
+
+import os
+
+import jax
+import numpy as np
+import pytest
+
+from segfusion_tpu.config import load_config
+from segfusion_tpu.core.pipeline import Pipeline as JPipeline
+from segfusion_tpu.data.synthetic import Synthetic as JSynthetic
+from segfusion_tpu_torch import test_fusion as port_entry
+from segfusion_tpu_torch.config import Config
+from segfusion_tpu_torch.utils.convert import fusionnet_from_flax
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG_SEM = os.path.join(ROOT, "configs", "fusion", "synthetic_semantic.yaml")
+
+
+def _port_config(tmp_path, **testing):
+    cfg = Config(load_config(CFG_SEM))
+    cfg.SETTINGS.experiment_path = str(tmp_path / "port")
+    cfg.TESTING.update(testing)
+    return cfg
+
+
+def test_entry_point_matches_jax(tmp_path, monkeypatch):
+    import test_fusion as jax_entry
+
+    jcfg = load_config(CFG_SEM)
+    jcfg.SETTINGS.experiment_path = str(tmp_path / "jax")
+    want = jax_entry.test_fusion(jcfg)
+
+    params, stats = JPipeline(load_config(CFG_SEM)).init_fusion_params(
+        jax.random.PRNGKey(0), 48, 48)
+    cfg = _port_config(tmp_path)
+    monkeypatch.setattr(port_entry, "get_data",
+                        lambda name, data_cfg, device=None:
+                        JSynthetic(data_cfg))
+    got = port_entry.test_fusion(
+        cfg, fusion_net=fusionnet_from_flax(params, stats,
+                                            cfg.FUSION_MODEL))
+
+    assert set(got) == set(want)
+    for k in ("mse", "mad", "iou", "acc"):
+        assert abs(got[k] - want[k]) <= 1e-4, (k, got[k], want[k])
+    assert got["sem_Mean Acc"] == want["sem_Mean Acc"]
+    assert got["sem_Mean IoU"] == want["sem_Mean IoU"]
+    for k in ("mesh_fscore", "mesh_precision", "mesh_recall"):
+        assert abs(got[k] - want[k]) <= 0.01, (k, got[k], want[k])
+    assert all(np.isfinite(v) for v in got.values())
+    assert got["mesh_fscore"] > 0.1 and got["iou"] > 0.05
+
+    # save_mode "test": hdf5 volumes, the mesh and the semantic mesh
+    out = os.path.join(cfg.SETTINGS.experiment_path, cfg.TIMESTAMP, "output")
+    files = sorted(os.listdir(out))
+    for suffix in (".tsdf.hf5", ".weights.hf5", ".semantics.hf5",
+                   "_0.ply", "_semantic.ply"):
+        assert any(f.endswith(suffix) for f in files), (suffix, files)
+    assert os.path.exists(os.path.join(cfg.SETTINGS.experiment_path,
+                                       cfg.TIMESTAMP, "config.json"))
+
+
+@pytest.mark.parametrize("testing,data,error", [
+    ({"sequence_chunk": 1}, {}, NotImplementedError),
+    ({"fusion_model_path": "model.ckpt"}, {}, NotImplementedError),
+    ({}, {"semantic_strategy": "predict"}, ValueError),
+    ({"semantic_2d_model_path": "seg.ckpt"},
+     {"semantic_strategy": "predict"}, NotImplementedError),
+    ({}, {"dataset": "Replica"}, NotImplementedError),
+])
+def test_entry_point_refuses_what_is_not_ported(tmp_path, testing, data,
+                                                error):
+    """Per-frame fusion, checkpoint loading and the real datasets are
+    later slices: each raises before any frame is fused."""
+    cfg = _port_config(tmp_path, **testing)
+    cfg.DATA.update(data)
+    with pytest.raises(error, match="ROADMAP|semantic_2d_model_path"):
+        port_entry.test_fusion(cfg)
+
+
+class _Frames:
+    """Seven frame dicts of arrays, numbers and ids."""
+
+    def __init__(self):
+        rng = np.random.RandomState(11)
+        self.items = [{"depth": rng.rand(3, 4).astype(np.float32),
+                       "index": i, "frame_id": f"scene/{i}"}
+                      for i in range(7)]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+@pytest.mark.parametrize("batch_size,shuffle,num_workers", [
+    (1, False, 0), (1, True, 2), (3, False, 2), (3, True, 0)])
+def test_prefetch_loader_matches_jax(batch_size, shuffle, num_workers):
+    """The same batches in the same order, two passes (the shuffle is
+    drawn anew for each): exact."""
+    from segfusion_tpu.data.prefetch import PrefetchLoader as JLoader
+    from segfusion_tpu_torch.data import PrefetchLoader
+
+    kw = dict(batch_size=batch_size, shuffle=shuffle,
+              num_workers=num_workers)
+    jl, pl = JLoader(_Frames(), **kw), PrefetchLoader(_Frames(), **kw)
+    assert len(pl) == len(jl)
+    for _ in range(2):
+        want, got = list(jl), list(pl)
+        assert len(got) == len(want) == len(jl)
+        for g, w in zip(got, want):
+            assert g.keys() == w.keys()
+            for k in w:
+                np.testing.assert_array_equal(np.asarray(g[k]),
+                                              np.asarray(w[k]))
+
+
+@pytest.mark.parametrize("mode", ["train", "val", "test"])
+def test_get_data_config_matches_jax(mode):
+    from segfusion_tpu.config import get_data_config as j_get
+    from segfusion_tpu_torch.config import get_data_config
+
+    want = j_get(load_config(CFG_SEM), mode)
+    got = get_data_config(Config(load_config(CFG_SEM)), mode)
+    for k in ("mode", "scene_list", "frame_ratio", "n_classes",
+              "voxel_resolution", "pad_shape_multiple"):
+        assert got.get(k) == want.get(k), k
