@@ -17,6 +17,13 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    events;
 3b. the median kernel (K5) against its plain version on a 448^3 uint8
    label volume, sizes 5 and 3: bit-exact; times and voxels/s;
+3c. the probe kernels (``segfusion_tpu_torch/probes``, ``csrc/probes.cu``,
+   the ports of the Pallas probes of ``tools/``) against their plain
+   versions at the tools' own sizes: bit-exact, or within the stated
+   tolerance (the scatter-add's atomics on random updates); kernel, plain
+   and library-call times, the traffic bound and the probe's rate; then
+   each probe module's ``main`` once, as ``python -m
+   segfusion_tpu_torch.probes.<name>`` runs it;
 4. the headline configuration through ``Pipeline.fuse_sequence_rows``:
    AdapNet++ stage 2 + FusionNet v3 (growth factor 6, semantics), 448^3
    at 1 cm, 256x256 frames, frame_block 4, sem_integrate_every 8, bf16
@@ -36,8 +43,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    configuration of configs/fusion/synthetic_tpu_demo_joint.yaml (16
    frames instead of 60).
 
-Launch counts are reset just before each main-path run (4, 4b, 5, 8) and
-read just after; the kernel checks' launches are not counted.
+Launch counts are reset just before each main-path run (3c's probe
+mains, 4, 4b, 5, 8) and read just after; the kernel checks' launches are
+not counted.
 
 Then one JSON line of per-kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result where
@@ -53,6 +61,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -72,12 +81,48 @@ from segfusion_tpu_torch.ops.integrate import pack_semantic_key
 from segfusion_tpu_torch.ops.kernels import _build
 from segfusion_tpu_torch.ops.kernels import median3d as k5
 from segfusion_tpu_torch.ops.kernels import shadow_build as sb
+from segfusion_tpu_torch.probes import _lib as probe_lib
+from segfusion_tpu_torch.probes import (dynamic_gather, pallas_caps,
+                                        pallas_caps2, pallas_caps3,
+                                        random_access, shadow_debug,
+                                        shadow_variants)
 from segfusion_tpu_torch.utils.mesh import MCUBES_SOURCE
 
 PALLAS = "segfusion_tpu/ops/pallas/shadow_build.py"
 SOURCE = "segfusion_tpu_torch/csrc/shadow_build.cu"
 K5_PALLAS = "segfusion_tpu/ops/pallas/median3d.py:104"
 K5_SOURCE = "segfusion_tpu_torch/csrc/median3d.cu"
+PROBE_SOURCE = "segfusion_tpu_torch/csrc/probes.cu"
+PROBES = (shadow_variants, random_access, dynamic_gather, pallas_caps3,
+          pallas_caps, pallas_caps2, shadow_debug)
+# probe wrapper -> the Pallas kernel (body) of tools/ it replaces
+PROBE_REPLACES = {
+    "dma_only": "tools/probe_shadow_variants.py:91",
+    "gather_smem": "tools/probe_random_access.py:89",
+    "take": "tools/probe_random_access.py:123",
+    "scatter_add": "tools/probe_random_access.py:157",
+    "box_sum": "tools/probe_random_access.py:194",
+    "gather_rows_sum": "tools/probe_dynamic_gather.py:25",
+    "take_lanes": "tools/probe_dynamic_gather.py:91",
+    "window_copy": "tools/probe_pallas_caps3.py:27",
+    "flat_copy": "tools/probe_pallas_caps3.py:40",
+    "f16_pack": "tools/probe_pallas_caps.py:36",
+    "lane_swap": "tools/probe_pallas_caps.py:44",
+    "roll64": "tools/probe_pallas_caps.py:51",
+    "reshape_slices": "tools/probe_pallas_caps.py:59",
+    "qshift": "tools/probe_pallas_caps.py:68",
+    "iota_mask": "tools/probe_pallas_caps.py:76",
+    "f16_unpack": "tools/probe_pallas_caps.py:84",
+    "store16": "tools/probe_pallas_caps2.py:34",
+    "rolls_sum": "tools/probe_pallas_caps2.py:42",
+    "narrow_pad": "tools/probe_pallas_caps2.py:52",
+    "regroup": "tools/probe_pallas_caps2.py:63",
+    "offset_copy": "tools/probe_pallas_caps2.py:73",
+    "roll1": "tools/probe_shadow_debug.py:17",
+}
+# H100 SXM: the float32 rate outside the tensor cores (the median's
+# operation bound; the memory rate is probe_lib.HBM_BYTES_PER_S)
+F32_OPS_PER_S = 67e12
 
 
 def log(msg: str):
@@ -99,6 +144,10 @@ def reset_counts():
 
 def read_counts() -> dict:
     return sb.launch_counts() | k5.launch_counts()
+
+
+def bytes_ms(nbytes: float) -> float:
+    return nbytes / probe_lib.HBM_BYTES_PER_S * 1e3
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -231,8 +280,12 @@ def check_kernels(dev):
                 raise RuntimeError(f"{name} ({tag}) disagrees with its "
                                    "plain version")
             if geo_dtype == torch.bfloat16:
+                # no single PyTorch call computes a shadow build or a
+                # reconcile: library_ms is null
                 results[name] = {"max_abs_err": errs[name], "ms": k_ms,
-                                 "plain_ms": p_ms}
+                                 "plain_ms": p_ms,
+                                 "bound_ms": bytes_ms(moved[name]),
+                                 "bound_by": "bytes", "library_ms": None}
         del geo, krows, prev, scratch, full_k, dirty_k, num_k, w_k, key_k
         torch.cuda.empty_cache()
     return results
@@ -280,10 +333,278 @@ def check_median(dev):
             raise RuntimeError(f"median_filter3d size {size} disagrees with "
                                "its plain version")
         if size == 5:
-            result = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+            # bytes: the volume read and written once; operations: the
+            # fewest comparisons a median of 125 values takes (124 per
+            # voxel), one operation each at the float32 rate. No single
+            # PyTorch call computes a 3-D median filter.
+            b_ms = bytes_ms(2 * vox)
+            o_ms = 124 * vox / F32_OPS_PER_S * 1e3
+            result = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                      "bound_ms": max(b_ms, o_ms),
+                      "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                      "library_ms": None}
     del vol
     torch.cuda.empty_cache()
     return result
+
+
+# -- phase 3c: the probe kernels against their plain versions -----------------
+
+class Case(NamedTuple):
+    """One probe kernel on one input: ``kernel`` / ``plain`` / ``library``
+    compute the same result; ``nbytes`` is the least traffic (inputs read
+    once, outputs written once, counting what this input touches);
+    ``name`` is the kernels-line entry the case gives, if any."""
+    label: str
+    name: Optional[str]
+    kernel: Callable
+    plain: Callable
+    library: Optional[Callable]
+    nbytes: float
+    elems: Optional[int] = None      # for a ns/elem rate
+    tol: float = 0.0                 # 0: bit-exact
+
+
+def device_ms(fn, dev, eager_ms: float) -> float:
+    """``eager_ms``, or for a call under 0.1 ms the graph-replay time."""
+    return (eager_ms if eager_ms >= 0.1
+            else probe_lib.device_ms(fn, dev, 20))
+
+
+def touched(flat_index: torch.Tensor, size: int) -> int:
+    """How many of ``size`` entries ``flat_index`` reads."""
+    mask = torch.zeros(size, dtype=torch.bool, device=flat_index.device)
+    mask[flat_index.reshape(-1)] = True
+    return int(mask.sum())
+
+
+def window_rows(offs: torch.Tensor, A: int, B: int, wa: int, wb: int):
+    """The 128-lane rows of an (A, B, 128) source that P11's windows read:
+    (row index of every window in order, count of distinct rows)."""
+    o = offs.cpu().numpy()
+    covered = np.zeros((A, B), bool)
+    rows = []
+    for k in range(len(o) // 2):
+        a = min(max(int(o[2 * k]), 0), A - wa)
+        b = min(max(int(o[2 * k + 1]), 0), B - wb)
+        covered[a:a + wa, b:b + wb] = True
+        rows.append(((a + np.arange(wa))[:, None] * B
+                     + b + np.arange(wb)[None, :]).reshape(-1))
+    return (torch.as_tensor(np.concatenate(rows), device=offs.device),
+            int(covered.sum()))
+
+
+def gather_cases(dev, g):
+    ra, dg = random_access, dynamic_gather
+
+    def randint(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    cases = []
+    n = 1 << 16
+    table = torch.randn((1, 32 ** 3), generator=g, device=dev)
+    idx = randint(32 ** 3, 1, n)
+    i64 = idx.long()
+    cases.append(Case("gather_smem 32^3 table, 65536 indices", "gather_smem",
+                      lambda: ra.gather_smem(table, idx),
+                      lambda: ra.gather_plain(table, idx),
+                      lambda: torch.take(table, i64),
+                      4 * touched(i64, 32 ** 3) + 8 * n, n))
+    for size in (512, 32 ** 3, 64 ** 3):
+        t = torch.randn((1, size), generator=g, device=dev)
+        ix = randint(size, n // 128, 128)
+        cases.append(Case(
+            f"take {size} table ({ra.take_route(t)})",
+            "take" if size == 64 ** 3 else None,
+            lambda t=t, ix=ix: ra.take(t, ix),
+            lambda t=t, ix=ix: ra.gather_plain(t, ix),
+            lambda t=t, ix=ix.long(): torch.take(t, ix),
+            4 * touched(ix.long(), size) + 8 * n, n))
+    bins = 32 ** 3
+    idx = randint(bins, 1, n)
+    acc = torch.zeros(bins, device=dev)
+    flat = idx.reshape(-1).long()
+    for kind, upd, tol in (
+            ("all-one", torch.ones((1, n), device=dev), 0.0),
+            # atomics add in no fixed order: |d| <= 1e-5 on bins of ~2
+            # standard normal updates
+            ("normal", torch.randn((1, n), generator=g, device=dev), 1e-5)):
+        cases.append(Case(
+            f"scatter_add 32^3 bins, {n} {kind} updates",
+            "scatter_add" if tol == 0 else None,
+            lambda upd=upd: ra.scatter_add(idx, upd, bins),
+            lambda upd=upd: ra.scatter_add_plain(idx, upd, bins),
+            lambda upd=upd.reshape(-1): acc.index_add_(0, flat, upd),
+            8 * n + 4 * bins, n, tol))
+    vol = torch.rand((256, 256, 256), generator=g, device=dev)
+    pos = torch.tensor([8, 16, 32], dtype=torch.int32, device=dev)
+    cases.append(Case("box_sum 64^3 box of a 256^3 volume", "box_sum",
+                      lambda: ra.box_sum(vol, pos, 64),
+                      lambda: ra.box_sum_plain(vol, pos, 64),
+                      lambda: vol[8:72, 16:80, 32:96].sum(0),
+                      4 * 64 ** 3 + 4 * 64 ** 2))
+    for S, dtype in ((32768, torch.float32), (8192, torch.int32)):
+        t = (torch.randn((S, 128), generator=g, device=dev)
+             if dtype == torch.float32 else randint(2 ** 31 - 1, S, 128))
+        ix = randint(S, S, 128)
+        k = torch.arange(8, device=dev)[:, None, None]
+        lanes = torch.arange(128, device=dev)
+        reads = touched((ix.long()[None] + k) % S * 128 + lanes, S * 128)
+        # no single PyTorch call sums eight gathers: library_ms is null
+        cases.append(Case(
+            f"gather_rows_sum S={S} {'f32' if S == 32768 else 'u32'}, 8 "
+            "terms", "gather_rows_sum" if S == 32768 else None,
+            lambda t=t, ix=ix: dg.gather_rows_sum(t, ix),
+            lambda t=t, ix=ix: dg.gather_rows_sum_plain(t, ix), None,
+            4 * reads + 8 * S * 128, S * 128 * 8))
+    t = torch.rand((128, 128), generator=g, device=dev)
+    ix = randint(128, 128, 128)
+    rows = torch.arange(128, device=dev)[:, None] * 128
+    cases.append(Case("take_lanes (128, 128)", "take_lanes",
+                      lambda: dg.take_lanes(t, ix),
+                      lambda: dg.take_lanes_plain(t, ix),
+                      lambda i64=ix.long(): torch.gather(t, 1, i64),
+                      4 * touched(rows + ix.long(), 128 * 128)
+                      + 8 * 128 * 128, 128 * 128))
+    return cases
+
+
+def copy_cases(dev, g):
+    sv, c3 = shadow_variants, pallas_caps3
+    L = rowvol.RowLayout.for_shape(HEADLINE_SHAPE)
+    geo = torch.rand((L.geo_rows, 128), generator=g, device=dev)
+    strided = geo.view(torch.int32)[:L.X * (L.Y + 2) * L.G] \
+        .view(L.X, L.Y + 2, L.G, 128)[:, 1:L.Y + 1, 0:2 * L.GK:2]
+    out = torch.empty((L.X, L.Y, L.GK, 128), dtype=torch.int32, device=dev)
+    cases = [Case("dma_only 448^3 (f32 geo)", "dma_only",
+                  lambda: sv.dma_only(geo, L),
+                  lambda: sv.dma_only_plain(geo, L),
+                  lambda: out.copy_(strided), sv.dma_only_bytes(L))]
+    for label, (fn, args, _, window) in c3.inputs(dev).items():
+        src, offs, wa = args[:3]
+        wb = args[3] if fn is c3.window_copy else 1
+        src3 = src if src.dim() == 3 else src[:, None]
+        rows, distinct = window_rows(offs, *src3.shape[:2], wa, wb)
+        out_rows = wb if fn is c3.window_copy else wa
+        plain = (c3.window_copy_plain if fn is c3.window_copy
+                 else c3.flat_copy_plain)
+        # library: one index_select copying the same 64 windows
+        cases.append(Case(
+            f"{fn.__name__}: {label} [{c3.copy_route(wa, wb)}]",
+            fn.__name__ if wa * wb == 406 else None,
+            lambda fn=fn, args=args: fn(*args),
+            lambda plain=plain, args=args: plain(*args),
+            lambda s2=src3.reshape(-1, 128), rows=rows:
+                torch.index_select(s2, 0, rows),
+            512 * (distinct + out_rows)))
+    return cases
+
+
+def lane_cases(dev, g):
+    """The lane bodies (P8, P9, P10, P12) on standard normal inputs of the
+    tools' shapes; bytes: the lanes and rows each body reads, once, and
+    its output."""
+    c1, c2, sd = pallas_caps, pallas_caps2, shadow_debug
+    x8 = torch.randn((8, 128), generator=g, device=dev)
+    x32 = torch.randn((32, 512), generator=g, device=dev)
+    x16 = torch.randn((16, 128), generator=g, device=dev)
+    x3 = torch.randn((8, 28, 16), generator=g, device=dev)
+    big = torch.randn((64, 128), generator=g, device=dev)
+    first4 = torch.arange(4, device=dev)
+    n8, n32, n16 = 8 * 128 * 4, 32 * 512 * 4, 16 * 128 * 4   # bytes
+    table = [
+        (c1.f16_pack, x8, None, 2 * n8),
+        (c1.lane_swap, x8,
+         lambda: torch.cat([x8[:, 64:], x8[:, :64]], 1), 2 * n8),
+        (c1.roll64, x8, lambda: torch.roll(x8, 64, 1), 2 * n8),
+        (c1.reshape_slices, x32, None, n32 * 3 // 16 + n32),
+        (c1.qshift, x32, lambda: torch.nn.functional.pad(x32, (0, 0, 4, -4)),
+         2 * n32 - 4 * 512 * 4),
+        (c1.iota_mask, x32, lambda: x32.index_fill(0, first4, 0.0),
+         2 * n32 - 4 * 512 * 4),
+        (c1.f16_unpack, x8, None, 2 * n8),
+        (c2.store16, x16, None, n16 * 112 // 128 + n16),
+        (c2.rolls_sum, x16, None, 2 * n16),
+        (c2.narrow_pad, x16, None, n16 * 32 // 128 + n16),
+        (c2.regroup, x3, None, 8 * 28 * 16 * 4 * 3 // 2),
+        (c2.offset_copy, big, lambda: torch.add(big[:32], 1.0),
+         2 * 32 * 128 * 4),
+        (sd.roll1, x8, lambda: torch.roll(x8, 1, 1), 2 * n8),
+    ]
+    plain = c1.PLAIN | c2.PLAIN | {sd.roll1: sd.roll1_plain}
+    return [Case(f"{fn.__name__} {tuple(x.shape)}", fn.__name__,
+                 lambda fn=fn, x=x: fn(x), lambda fn=fn, x=x: plain[fn](x),
+                 lib, nbytes)
+            for fn, x, lib, nbytes in table]
+
+
+def probe_counts() -> dict:
+    counts = {}
+    for m in PROBES:
+        counts |= m.launch_counts()
+    return counts
+
+
+def check_probes(dev):
+    """Every probe kernel against its plain version at the tools' sizes;
+    returns the kernels-line results, then runs each probe's main once
+    with the launch counts reset and returns those counts too.
+
+    Times come from CUDA events around 20 back-to-back calls; where such
+    a call takes under 0.1 ms, the host's launch overhead is most of it,
+    and the kernel's (or library call's) time is taken instead from 20
+    calls captured in a CUDA graph and replayed (``probes._lib.device_ms``).
+    ``eager_ms`` is the back-to-back time, host overhead included; plain
+    versions are timed that way only."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    results = {}
+    log("probe kernels (csrc/probes.cu) against their plain versions:")
+    for case in copy_cases(dev, g) + gather_cases(dev, g) + lane_cases(dev,
+                                                                       g):
+        got, want = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        ok = (got.dtype == want.dtype and torch.equal(got, want)
+              if case.tol == 0 else err <= case.tol)
+        del got, want
+        e_ms = cuda_ms(case.kernel, 20)
+        k_ms = device_ms(case.kernel, dev, e_ms)
+        p_ms = cuda_ms(case.plain, 3, warmup=1)
+        l_ms = (device_ms(case.library, dev, cuda_ms(case.library, 20))
+                if case.library else None)
+        b_ms = bytes_ms(case.nbytes)
+        rate = (f"{k_ms * 1e6 / case.elems:.4f} ns/elem" if case.elems
+                else f"{case.nbytes / k_ms / 1e6:.1f} GB/s")
+        lib = "n/a" if l_ms is None else f"{l_ms:.4f}"
+        log(f"  {case.label}: {'exact' if case.tol == 0 else 'tol'}="
+            f"{ok} max_abs_err={err} kernel_ms {k_ms:.4f} (eager_ms "
+            f"{e_ms:.4f}) plain_ms {p_ms:.4f} library_ms {lib} bound_ms "
+            f"{b_ms:.6f} ({rate})")
+        if not ok:
+            raise RuntimeError(f"{case.label}: the kernel disagrees with its "
+                               "plain version")
+        if case.name:
+            results[case.name] = {"max_abs_err": err, "ms": k_ms,
+                                  "plain_ms": p_ms, "bound_ms": b_ms,
+                                  "bound_by": "bytes", "library_ms": l_ms}
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for m in PROBES:
+        m.reset_launch_counts()
+    t0 = time.perf_counter()
+    for m in PROBES:
+        log(f"-- python -m {m.__name__}")
+        m.main(dev)
+    torch.cuda.synchronize()
+    counts = probe_counts()
+    log(f"probe mains: {time.perf_counter() - t0:.2f} s; launches {counts}")
+    require(counts, list(PROBE_REPLACES), "probe mains")
+    if set(results) != set(PROBE_REPLACES):
+        raise RuntimeError("probe results missing for "
+                           f"{set(PROBE_REPLACES) - set(results)}")
+    torch.cuda.empty_cache()
+    return results, counts
 
 
 # -- phases 4-8: the main path ------------------------------------------------
@@ -568,6 +889,7 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = [lambda: _build.load_library("shadow_build"),
               lambda: _build.load_library("median3d"),
+              lambda: _build.load_library("probes"),
               lambda: _build.load_host_library(MCUBES_SOURCE)]
     with ThreadPoolExecutor(len(builds)) as pool:
         infos = [info for _, info in pool.map(lambda b: b(), builds)]
@@ -581,6 +903,7 @@ def main() -> int:
 
     results = check_kernels(dev)
     results["median_filter3d"] = check_median(dev)
+    probe_results, probe_launches = check_probes(dev)
     launches = headline(dev)
     small_reference(dev)
     fuse_many_run(dev)
@@ -596,6 +919,10 @@ def main() -> int:
                 "source": K5_SOURCE if name == "median_filter3d" else SOURCE,
                 "replaces": replaces[name], "launches": launches[name],
                 **results[name]} for name in replaces]
+    kernels += [{"name": name, "route": "cuda", "source": PROBE_SOURCE,
+                 "replaces": where, "launches": probe_launches[name],
+                 **probe_results[name]}
+                for name, where in PROBE_REPLACES.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

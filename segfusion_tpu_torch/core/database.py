@@ -6,8 +6,8 @@ Port of ``segfusion_tpu/core/database.py``. Each scene's fusion state is a
 copies happen only at evaluation, meshing and save boundaries, cropped to
 the unpadded gt shape first. The median filter of ``filter_semantics`` is
 the K5 kernel for a CUDA volume and its plain version for a CPU one
-(``ops/kernels/median3d.py``). Metrics, label colours, ply IO and the
-workspace are the JAX package's host modules, which import no JAX.
+(``ops/kernels/median3d.py``). Metrics, label colours and ply IO are the
+port's own copies of the JAX package's host modules (``utils/``).
 """
 
 from __future__ import annotations
@@ -19,13 +19,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from segfusion_tpu.utils import metrics as metrics_lib
-from segfusion_tpu.utils.mapping import get_mapping
-from segfusion_tpu.utils.meshio import write_ply
-
+from ..device import resolve_device
 from ..ops.integrate import pack_semantic_key
 from ..ops.kernels.median3d import median_filter3d
+from ..utils import metrics as metrics_lib
+from ..utils.mapping import get_mapping
 from ..utils.mesh import marching_cubes
+from ..utils.meshio import write_ply
 from .volume import SceneVolume, init_scene_volume
 
 __all__ = ["Database"]
@@ -35,14 +35,14 @@ class Database:
     """Per scene: gt TSDF (+ gt labels), origin, resolution, unpadded grid
     shape and the current fusion state (on ``device``)."""
 
-    def __init__(self, dataset, config, device=None):
+    def __init__(self, dataset, config, device="cuda"):
+        self.device = device = resolve_device(device)
         self.initial_value = float(config.init_value)
         self.semantics = bool(config.get("semantics"))
         self.semantic_grid = bool(config.get("semantic_grid"))
         self.n_classes = int(config.get("n_classes", 0) or 0)
         self.pad_shape_multiple = int(config.get("pad_shape_multiple", 1)
                                       or 1)
-        self.device = device
 
         self.scenes = []
         self.state: Dict[str, bool] = {}

@@ -22,6 +22,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models import seeded_init
 from ..models.fusionnet import build_fusion_net
 from ..ops import geometry
@@ -58,12 +59,13 @@ class Pipeline:
     labels a whole chunk up front, ``_SEM_BATCH`` frames per forward.
     ``fusion_net``: a loaded FusionNetV3; when None one is built with
     random weights from ``generator`` (default seed 0). The net is moved
-    to ``device`` in FUSION_MODEL.compute_dtype."""
+    to ``device`` ("cuda" unless the caller names the CPU) in
+    FUSION_MODEL.compute_dtype."""
 
     def __init__(self, config, segmenter=None, fusion_net=None,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None):
         self.config = config
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.n_points = int(config.FUSION_MODEL.n_points)
         self.n_tail_points = int(config.FUSION_MODEL.n_tail_points)
         self.init_value = float(config.DATA.init_value)

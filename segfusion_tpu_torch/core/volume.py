@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.integrate import unpack_semantic_key
 
 __all__ = ["Voxelgrid", "SceneVolume", "init_scene_volume"]
@@ -65,8 +66,9 @@ class SceneVolume:
 
 
 def init_scene_volume(shape: Tuple[int, int, int], origin, resolution: float,
-                      init_value: float = 0.1, device=None) -> SceneVolume:
-    """A fresh (all-zero) SceneVolume on ``device`` (default: the CPU)."""
+                      init_value: float = 0.1, device="cuda") -> SceneVolume:
+    """A fresh (all-zero) SceneVolume on ``device``."""
+    device = resolve_device(device)
     shape = tuple(int(s) for s in shape)
     return SceneVolume(
         num=torch.zeros(shape, dtype=torch.float32, device=device),

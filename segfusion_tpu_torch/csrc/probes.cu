@@ -1,0 +1,605 @@
+// Hopper kernels for the hardware probes (segfusion_tpu_torch/probes/).
+//
+// Each kernel here replaces one Pallas TPU probe kernel of tools/ and
+// computes the same function, so the probes can ask this card the
+// questions the TPU probes asked that one: what a copy with the shadow
+// build's access pattern costs, how fast a gather from or a scatter-add
+// into on-chip memory runs, and what a strided window copy costs against
+// the same bytes contiguous. The modules under probes/ hold the wrappers
+// (which check device, dtype, shape and contiguity) and a plain PyTorch
+// version beside each kernel.
+//
+// Conventions: every launcher is extern "C", takes raw pointers, sizes and
+// a cudaStream_t, launches on that stream without synchronising, and
+// returns cudaGetLastError(). Element-wise kernels run one thread per
+// output element (256 threads a block); sizes are the wrapper's to check.
+// The kernels use no fast-math: sums keep the order of the plain versions,
+// so every kernel is bit-exact to its plain version except the two whose
+// order the card does not fix (scatter_add: shared-memory atomics; noted
+// there).
+//
+// Per-kernel notes, in the order of the probe modules:
+//
+// P1 dma_only_kernel <- tools/probe_shadow_variants.py dma_only (:91, body
+//    dma_only_kernel :57). out[x, y*GK + gk, :] = bits of
+//    geo[(x * YS + y + 1) * G + 2 gk, :] (YS = Y + 2 as in the TPU probe),
+//    zero where 2 gk >= G: the shadow build's reads and writes with no
+//    arithmetic. Bound: bytes, half the geo rows read and the shadow
+//    written once (2.88 GB at 448^3, 0.86 ms at 3.35 TB/s). Design: one
+//    thread per 16-byte output vector, neighbouring threads on neighbouring
+//    lanes, so each warp reads and writes 512 contiguous bytes; each thread
+//    reads only the row it writes.
+// P2 gather_smem_kernel <- tools/probe_random_access.py
+//    probe_pallas_scalar_gather (:89, body :94). out[i] = table[idx[i]]
+//    with the table held on chip. Bound: the table, the indices and the
+//    output read or written once, but per element a shared-memory load at
+//    a random address (bank conflicts). Design: each block stages the whole
+//    table (up to 227 KB, the dynamic shared-memory opt-in) with contiguous
+//    loads, then gathers its share of the indices from shared memory; the
+//    grid stays small (one block per 8,192 indices, at most one per SM) so
+//    the staging is paid few times.
+// P3 gather_smem_kernel / gather_global_kernel <- probe_random_access.py
+//    probe_pallas_vector_take (:123, body :128). The same function in the
+//    TPU's vector form. A table that fits in shared memory takes P2's
+//    kernel; a larger one (64^3 f32, 1 MiB) is gathered straight from
+//    device memory, which the 50 MB L2 holds after the first touch.
+// P4 scatter_add_kernel <- probe_random_access.py probe_pallas_scalar_rmw
+//    (:157, body :162). out = 0; out[idx[i]] += upd[i]. Bound: bytes (the
+//    indices and updates read once, the output written once) and the rate
+//    of shared-memory atomics. Design: each block accumulates its share in
+//    a shared-memory copy of the output with atomicAdd, then adds its
+//    non-zero bins to the output (zeroed by the wrapper) with one global
+//    atomic each. The order of the float adds is not the TPU loop's and
+//    not fixed: exact where every partial sum is exact (the probe's
+//    all-ones updates, counts below 2^24), within a stated tolerance on
+//    random updates.
+// P5 box_sum_kernel <- probe_random_access.py probe_box_dma (:194, body
+//    :200). out[y, z] = sum over x < B of vol[x0 + x, y0 + y, z0 + z], the
+//    start read from device memory and clamped into the volume as
+//    lax.dynamic_slice clamps. Bound: the B^3 box read once. Design: one
+//    thread per (y, z) column, summing over x in order, so neighbouring
+//    threads read neighbouring z. Hopper's counterpart of the TPU's box
+//    DMA is a 3-D TMA tile load into shared memory; that is the next step,
+//    not written here.
+// P6 gather_rows_sum_kernel <- tools/probe_dynamic_gather.py probe (:25,
+//    body :26). out[i, j] = sum over k < inner of
+//    table[(idx[i, j] + k) mod S, j], in order of k from 0, for f32 and for
+//    u32 (a wrapping add). Bound: the indices read, the output written and
+//    the table entries touched read once. Design: one thread per output
+//    element; the table stays in device memory at every S (at S = 32,768
+//    it is 16 MiB, far above shared memory, and L2 holds it).
+// P7 take_lanes_kernel <- probe_dynamic_gather.py probe_axis1 (:91, body
+//    :94). out[i, j] = table[i, idx[i, j] mod C]. One thread per element.
+// P8 f16_pack / lane_swap / roll_lanes / reshape_slices / qshift /
+//    iota_mask / f16_unpack <- tools/probe_pallas_caps.py tryk (:19),
+//    bodies :36-91: lane and row permutations and the f16 pack and unpack
+//    (round to nearest even, __float2half_rn, as XLA converts).
+// P9 store16 / rolls_sum / narrow_pad / regroup <- tools/probe_pallas_caps2.py
+//    tryk (:18), bodies :34-66.
+// P10 offset_copy_kernel <- probe_pallas_caps2.py main (:30, call :82, body
+//    k_dma :73): block k copies rows [k R, k R + R) and adds 1.
+// P11 window_copy_kernel <- tools/probe_pallas_caps3.py main (:51; bodies
+//    _win_kernel :27 and _flat_kernel :40): n windows of (WA, WB, 128) f32
+//    at dynamic offsets (the contiguous form is WB = 1), each copied into a
+//    scratch; the output is the first out_rows 128-lane rows of the last
+//    window's copy. The TPU ran the copies one after another on one core;
+//    here one block copies each window, all in parallel, with 16-byte
+//    loads, and only the last window's block writes the output. A window
+//    that fits (the (58, 7, 128) f32 window is 207,872 B) goes to shared
+//    memory with the opt-in; a larger one to a device-memory scratch that
+//    the wrapper allocates, one slice per window. Bound: bytes, the union
+//    of the windows read once.
+// P12 roll_lanes (shift 1) <- tools/probe_shadow_debug.py roll_semantics
+//    (:17, call :23): out[:, l] = x[:, (l - 1) mod C], jnp.roll's
+//    direction, which compiled pltpu.roll has.
+//
+// What bounds P8-P12 at the probes' sizes (4-64 KiB) is the launch itself;
+// they are there to hold the TPU bodies' semantics, not to be fast.
+
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBigThreads = 1024;
+// the most dynamic shared memory one block can have on sm_90
+constexpr int kMaxSmem = 232448;
+
+inline unsigned blocks_for(long long n) {
+  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+// one block per 8,192 elements, at most one per SM (132 on an H100 SXM)
+inline unsigned staged_blocks(long long n) {
+  long long b = (n + 8191) / 8192;
+  return static_cast<unsigned>(b < 1 ? 1 : (b > 132 ? 132 : b));
+}
+
+__device__ __forceinline__ long long tid() {
+  return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ int floor_mod(long long a, int m) {
+  long long r = a % m;
+  return static_cast<int>(r < 0 ? r + m : r);
+}
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// Opt a kernel in to the full dynamic shared memory, once per launcher
+// (``done`` is the launcher's own flag), so that a launch captured into a
+// CUDA graph makes no attribute call.
+template <typename K>
+cudaError_t allow_smem(K kernel, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  done = err == cudaSuccess;
+  return err;
+}
+
+// -- P1 -----------------------------------------------------------------------
+
+__global__ void dma_only_kernel(const uint4* __restrict__ geo,
+                                uint4* __restrict__ out, int Y, int G, int GK,
+                                int YS, long long n_vec) {
+  const long long t = tid();
+  if (t >= n_vec) return;
+  const int v = static_cast<int>(t & 31);   // 32 vectors per 128-lane row
+  const long long row = t >> 5;
+  const int gk = static_cast<int>(row % GK);
+  const long long xy = row / GK;
+  const int y = static_cast<int>(xy % Y);
+  const long long x = xy / Y;
+  uint4 val = make_uint4(0u, 0u, 0u, 0u);
+  if (2 * gk < G) val = geo[((x * YS + y + 1) * G + 2 * gk) * 32 + v];
+  out[t] = val;
+}
+
+// -- P2 / P3 ------------------------------------------------------------------
+
+__global__ void gather_smem_kernel(const float* __restrict__ table,
+                                   int n_table, const int* __restrict__ idx,
+                                   float* __restrict__ out, long long n) {
+  extern __shared__ float tab[];
+  for (int i = threadIdx.x; i < n_table; i += blockDim.x) tab[i] = table[i];
+  __syncthreads();
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = tid(); i < n; i += stride) {
+    const int j = idx[i];
+    // indices outside the table read 0 (the plain version raises there)
+    out[i] = static_cast<unsigned>(j) < static_cast<unsigned>(n_table)
+                 ? tab[j] : 0.0f;
+  }
+}
+
+__global__ void gather_global_kernel(const float* __restrict__ table,
+                                     int n_table, const int* __restrict__ idx,
+                                     float* __restrict__ out, long long n) {
+  const long long i = tid();
+  if (i >= n) return;
+  const int j = idx[i];
+  out[i] = static_cast<unsigned>(j) < static_cast<unsigned>(n_table)
+               ? table[j] : 0.0f;
+}
+
+// -- P4 -----------------------------------------------------------------------
+
+__global__ void scatter_add_kernel(const int* __restrict__ idx,
+                                   const float* __restrict__ upd, long long n,
+                                   float* __restrict__ out, int n_out) {
+  extern __shared__ float acc[];
+  for (int i = threadIdx.x; i < n_out; i += blockDim.x) acc[i] = 0.0f;
+  __syncthreads();
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = tid(); i < n; i += stride) {
+    const int j = idx[i];
+    if (static_cast<unsigned>(j) < static_cast<unsigned>(n_out))
+      atomicAdd(&acc[j], upd[i]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
+    const float v = acc[i];
+    if (v != 0.0f) atomicAdd(&out[i], v);
+  }
+}
+
+// -- P5 -----------------------------------------------------------------------
+
+__global__ void box_sum_kernel(const float* __restrict__ vol, int SX, int SY,
+                               int SZ, const int* __restrict__ pos, int B,
+                               float* __restrict__ out) {
+  const long long t = tid();
+  if (t >= static_cast<long long>(B) * B) return;
+  const int y = static_cast<int>(t / B), z = static_cast<int>(t % B);
+  const int x0 = clampi(pos[0], 0, SX - B);
+  const int y0 = clampi(pos[1], 0, SY - B);
+  const int z0 = clampi(pos[2], 0, SZ - B);
+  const long long plane = static_cast<long long>(SY) * SZ;
+  const float* p = vol + static_cast<long long>(x0) * plane
+                   + static_cast<long long>(y0 + y) * SZ + z0 + z;
+  float acc = 0.0f;
+  for (int x = 0; x < B; ++x) acc += p[x * plane];
+  out[t] = acc;
+}
+
+// -- P6 / P7 ------------------------------------------------------------------
+
+template <typename T>
+__global__ void gather_rows_sum_kernel(const T* __restrict__ table,
+                                       const int* __restrict__ idx,
+                                       T* __restrict__ out, int S, int C,
+                                       int inner, long long n) {
+  const long long e = tid();
+  if (e >= n) return;
+  const int j = static_cast<int>(e % C);
+  const long long base = idx[e];
+  T acc = 0;
+  for (int k = 0; k < inner; ++k)
+    acc = acc + table[static_cast<long long>(floor_mod(base + k, S)) * C + j];
+  out[e] = acc;
+}
+
+__global__ void take_lanes_kernel(const float* __restrict__ table,
+                                  const int* __restrict__ idx,
+                                  float* __restrict__ out, int C,
+                                  long long n) {
+  const long long e = tid();
+  if (e >= n) return;
+  const long long row = e / C;
+  out[e] = table[row * C + floor_mod(idx[e], C)];
+}
+
+// -- P8 -----------------------------------------------------------------------
+
+__global__ void f16_pack_kernel(const float* __restrict__ x,
+                                uint32_t* __restrict__ out, long long n) {
+  const long long e = tid();
+  if (e >= n) return;
+  const uint32_t b = __half_as_ushort(__float2half_rn(x[e]));
+  out[e] = (b << 16) | b;
+}
+
+// concat(x[:, 64:], x[:, :64]) along the lanes
+__global__ void lane_swap_kernel(const float* __restrict__ x,
+                                 float* __restrict__ out, int C, long long n) {
+  const long long e = tid();
+  if (e >= n) return;
+  const long long row = e / C;
+  const int l = static_cast<int>(e % C);
+  out[e] = x[row * C + (l + 64) % C];
+}
+
+// out[:, l] = x[:, (l - shift) mod C]
+__global__ void roll_lanes_kernel(const float* __restrict__ x,
+                                  float* __restrict__ out, int C, int shift,
+                                  long long n) {
+  const long long e = tid();
+  if (e >= n) return;
+  const long long row = e / C;
+  const int l = static_cast<int>(e % C);
+  out[e] = x[row * C + floor_mod(static_cast<long long>(l) - shift, C)];
+}
+
+// x (4Q, 512) seen as (Q, 4, 512): w[q, c] = (v[q, 0, c] + v[q, 1, 128 + c])
+// + v[q, 3, 384 + c]; out[r, c'] = w[r / 4, c' % 128]
+__global__ void reshape_slices_kernel(const float* __restrict__ x,
+                                      float* __restrict__ out, long long n) {
+  const long long e = tid();
+  if (e >= n) return;
+  const long long r = e / 512;
+  const int c = static_cast<int>(e % 128);
+  const float* v = x + (r / 4) * 4 * 512;
+  out[e] = (v[c] + v[512 + 128 + c]) + v[3 * 512 + 384 + c];
+}
+
+// x (4Q, C) seen as (Q, 4, C), shifted down one q: out[r] = x[r - 4], 0 for
+// r < 4
+__global__ void qshift_kernel(const float* __restrict__ x,
+                              float* __restrict__ out, int C, long long n) {
+  const long long e = tid();
+  if (e >= n) return;
+  out[e] = e < 4LL * C ? 0.0f : x[e - 4LL * C];
+}
+
+// where(q == 0, 0, x) over (Q, 4, C): the first four rows zeroed
+__global__ void iota_mask_kernel(const float* __restrict__ x,
+                                 float* __restrict__ out, int C, long long n) {
+  const long long e = tid();
+  if (e >= n) return;
+  out[e] = e < 4LL * C ? 0.0f : x[e];
+}
+
+// the high 16 bits of each f32 word read as an f16, widened to f32
+__global__ void f16_unpack_kernel(const uint32_t* __restrict__ x,
+                                  float* __restrict__ out, long long n) {
+  const long long e = tid();
+  if (e >= n) return;
+  out[e] = __half2float(__ushort_as_half(static_cast<uint16_t>(x[e] >> 16)));
+}
+
+// -- P9 -----------------------------------------------------------------------
+
+// out[:, 0:16] = 2 x[:, 0:16]; out[:, 16:32] = 3 x[:, 0:16];
+// out[:, 32:] = x[:, 32:]
+__global__ void store16_kernel(const float* __restrict__ x,
+                               float* __restrict__ out, int C, long long n) {
+  const long long e = tid();
+  if (e >= n) return;
+  const long long row = e / C;
+  const int l = static_cast<int>(e % C);
+  float v;
+  if (l < 16) v = x[row * C + l] * 2.0f;
+  else if (l < 32) v = x[row * C + l - 16] * 3.0f;
+  else v = x[e];
+  out[e] = v;
+}
+
+// ((roll 1 + roll 15) + roll 16) + roll 48
+__global__ void rolls_sum_kernel(const float* __restrict__ x,
+                                 float* __restrict__ out, int C, long long n) {
+  const long long e = tid();
+  if (e >= n) return;
+  const float* r = x + (e / C) * C;
+  const int l = static_cast<int>(e % C);
+  out[e] = ((r[floor_mod(l - 1, C)] + r[floor_mod(l - 15, C)])
+            + r[floor_mod(l - 16, C)]) + r[floor_mod(l - 48, C)];
+}
+
+// out[:, l] = x[:, l] + x[:, (l - 16) mod C] for l < 16, else 0
+__global__ void narrow_pad_kernel(const float* __restrict__ x,
+                                  float* __restrict__ out, int C,
+                                  long long n) {
+  const long long e = tid();
+  if (e >= n) return;
+  const float* r = x + (e / C) * C;
+  const int l = static_cast<int>(e % C);
+  out[e] = l < 16 ? r[l] + r[floor_mod(l - 16, C)] : 0.0f;
+}
+
+// x (A, 2 H, D) -> out (A, H, D): out[a, h, d] = x[a, 2h, d] + 2 x[a, 2h+1, d]
+// (x * 2 is exact, so a fused multiply-add gives the same bits)
+__global__ void regroup_kernel(const float* __restrict__ x,
+                               float* __restrict__ out, int D, long long n) {
+  const long long e = tid();
+  if (e >= n) return;
+  const long long ah = e / D;
+  const int d = static_cast<int>(e % D);
+  const float* r = x + ah * 2 * D;
+  out[e] = r[d] + r[D + d] * 2.0f;
+}
+
+// -- P10 ----------------------------------------------------------------------
+
+__global__ void offset_copy_kernel(const float* __restrict__ x,
+                                   float* __restrict__ out, int block_elems) {
+  const long long base = static_cast<long long>(blockIdx.x) * block_elems;
+  for (int i = threadIdx.x; i < block_elems; i += blockDim.x)
+    out[base + i] = x[base + i] + 1.0f;
+}
+
+// -- P11 ----------------------------------------------------------------------
+
+// One block per window: window k of (WA, WB) 128-lane rows of src, viewed
+// as (A, B, 128), at (offs[2k], offs[2k+1]) clamped into src, copied to
+// shared memory (scratch == nullptr) or to scratch slice k; the last
+// window's block writes the first out_vecs 16-byte vectors of its copy.
+__global__ void window_copy_kernel(const float4* __restrict__ src, int A,
+                                   int B, const int* __restrict__ offs,
+                                   int WA, int WB, float4* scratch,
+                                   float4* __restrict__ out, int out_vecs) {
+  extern __shared__ __align__(16) float4 window[];
+  const int k = blockIdx.x;
+  const int oa = clampi(offs[2 * k], 0, A - WA);
+  const int ob = clampi(offs[2 * k + 1], 0, B - WB);
+  const long long n_vec = static_cast<long long>(WA) * WB * 32;
+  float4* dst = scratch == nullptr ? window : scratch + k * n_vec;
+  for (long long i = threadIdx.x; i < n_vec; i += blockDim.x) {
+    const int v = static_cast<int>(i & 31);
+    const long long ab = i >> 5;
+    const int b = static_cast<int>(ab % WB);
+    const long long a = ab / WB;
+    dst[i] = src[((oa + a) * B + ob + b) * 32 + v];
+  }
+  __syncthreads();
+  if (k == static_cast<int>(gridDim.x) - 1)
+    for (int i = threadIdx.x; i < out_vecs; i += blockDim.x) out[i] = dst[i];
+}
+
+template <typename K, typename... Args>
+int launch_flat(K kernel, long long n, cudaStream_t s, Args... args) {
+  kernel<<<blocks_for(n), kThreads, 0, s>>>(args..., n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+#define STREAM static_cast<cudaStream_t>(stream)
+
+// P1: geo (rows, 128) f32 -> out (X * Y * GK, 128) u32 bits.
+extern "C" int sf_probe_dma_only(const void* geo, void* out, int X, int Y,
+                                 int G, int GK, int YS, void* stream) {
+  const long long n_vec = static_cast<long long>(X) * Y * GK * 32;
+  dma_only_kernel<<<blocks_for(n_vec), kThreads, 0, STREAM>>>(
+      static_cast<const uint4*>(geo), static_cast<uint4*>(out), Y, G, GK, YS,
+      n_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P2/P3, table in shared memory (n_table * 4 <= 232,448 B).
+extern "C" int sf_probe_gather_smem(const void* table, int n_table,
+                                    const void* idx, void* out, long long n,
+                                    void* stream) {
+  static bool opted_in = false;
+  cudaError_t err = allow_smem(gather_smem_kernel, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gather_smem_kernel<<<staged_blocks(n), kBigThreads, n_table * 4, STREAM>>>(
+      static_cast<const float*>(table), n_table, static_cast<const int*>(idx),
+      static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P3, table in device memory.
+extern "C" int sf_probe_gather_global(const void* table, int n_table,
+                                      const void* idx, void* out, long long n,
+                                      void* stream) {
+  return launch_flat(gather_global_kernel, n, STREAM,
+                     static_cast<const float*>(table), n_table,
+                     static_cast<const int*>(idx), static_cast<float*>(out));
+}
+
+// P4: out (n_out,) f32, zeroed by the caller; n_out * 4 <= 232,448 B.
+extern "C" int sf_probe_scatter_add(const void* idx, const void* upd,
+                                    long long n, void* out, int n_out,
+                                    void* stream) {
+  static bool opted_in = false;
+  cudaError_t err = allow_smem(scatter_add_kernel, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scatter_add_kernel<<<staged_blocks(n), kBigThreads, n_out * 4, STREAM>>>(
+      static_cast<const int*>(idx), static_cast<const float*>(upd), n,
+      static_cast<float*>(out), n_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P5: vol (SX, SY, SZ) f32, pos (3,) int32 on the device, out (B, B).
+extern "C" int sf_probe_box_sum(const void* vol, int SX, int SY, int SZ,
+                                const void* pos, int B, void* out,
+                                void* stream) {
+  box_sum_kernel<<<blocks_for(static_cast<long long>(B) * B), kThreads, 0,
+                   STREAM>>>(static_cast<const float*>(vol), SX, SY, SZ,
+                             static_cast<const int*>(pos), B,
+                             static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P6: table (S, C), idx (n / C, C) int32, out like idx; f32, or u32 bits
+// (is_u32) added with wraparound.
+extern "C" int sf_probe_gather_rows_sum(const void* table, const void* idx,
+                                        void* out, int S, int C, long long n,
+                                        int inner, int is_u32, void* stream) {
+  const int* ix = static_cast<const int*>(idx);
+  if (is_u32)
+    return launch_flat(gather_rows_sum_kernel<uint32_t>, n, STREAM,
+                       static_cast<const uint32_t*>(table), ix,
+                       static_cast<uint32_t*>(out), S, C, inner);
+  return launch_flat(gather_rows_sum_kernel<float>, n, STREAM,
+                     static_cast<const float*>(table), ix,
+                     static_cast<float*>(out), S, C, inner);
+}
+
+// P7: table (R, C) f32, idx (R, C) int32, out (R, C).
+extern "C" int sf_probe_take_lanes(const void* table, const void* idx,
+                                   void* out, int C, long long n,
+                                   void* stream) {
+  return launch_flat(take_lanes_kernel, n, STREAM,
+                     static_cast<const float*>(table),
+                     static_cast<const int*>(idx), static_cast<float*>(out),
+                     C);
+}
+
+// P8 bodies, on n = R * C elements.
+extern "C" int sf_probe_f16_pack(const void* x, void* out, long long n,
+                                 void* stream) {
+  return launch_flat(f16_pack_kernel, n, STREAM, static_cast<const float*>(x),
+                     static_cast<uint32_t*>(out));
+}
+
+extern "C" int sf_probe_lane_swap(const void* x, void* out, int C,
+                                  long long n, void* stream) {
+  return launch_flat(lane_swap_kernel, n, STREAM,
+                     static_cast<const float*>(x), static_cast<float*>(out),
+                     C);
+}
+
+extern "C" int sf_probe_roll_lanes(const void* x, void* out, int C, int shift,
+                                   long long n, void* stream) {
+  return launch_flat(roll_lanes_kernel, n, STREAM,
+                     static_cast<const float*>(x), static_cast<float*>(out),
+                     C, shift);
+}
+
+extern "C" int sf_probe_reshape_slices(const void* x, void* out, long long n,
+                                       void* stream) {
+  return launch_flat(reshape_slices_kernel, n, STREAM,
+                     static_cast<const float*>(x), static_cast<float*>(out));
+}
+
+extern "C" int sf_probe_qshift(const void* x, void* out, int C, long long n,
+                               void* stream) {
+  return launch_flat(qshift_kernel, n, STREAM, static_cast<const float*>(x),
+                     static_cast<float*>(out), C);
+}
+
+extern "C" int sf_probe_iota_mask(const void* x, void* out, int C,
+                                  long long n, void* stream) {
+  return launch_flat(iota_mask_kernel, n, STREAM,
+                     static_cast<const float*>(x), static_cast<float*>(out),
+                     C);
+}
+
+extern "C" int sf_probe_f16_unpack(const void* x, void* out, long long n,
+                                   void* stream) {
+  return launch_flat(f16_unpack_kernel, n, STREAM,
+                     static_cast<const uint32_t*>(x),
+                     static_cast<float*>(out));
+}
+
+// P9 bodies.
+extern "C" int sf_probe_store16(const void* x, void* out, int C, long long n,
+                                void* stream) {
+  return launch_flat(store16_kernel, n, STREAM, static_cast<const float*>(x),
+                     static_cast<float*>(out), C);
+}
+
+extern "C" int sf_probe_rolls_sum(const void* x, void* out, int C,
+                                  long long n, void* stream) {
+  return launch_flat(rolls_sum_kernel, n, STREAM,
+                     static_cast<const float*>(x), static_cast<float*>(out),
+                     C);
+}
+
+extern "C" int sf_probe_narrow_pad(const void* x, void* out, int C,
+                                   long long n, void* stream) {
+  return launch_flat(narrow_pad_kernel, n, STREAM,
+                     static_cast<const float*>(x), static_cast<float*>(out),
+                     C);
+}
+
+extern "C" int sf_probe_regroup(const void* x, void* out, int D, long long n,
+                                void* stream) {
+  return launch_flat(regroup_kernel, n, STREAM, static_cast<const float*>(x),
+                     static_cast<float*>(out), D);
+}
+
+// P10: blocks of block_elems elements, x and out at least n_blocks *
+// block_elems long.
+extern "C" int sf_probe_offset_copy(const void* x, void* out, int n_blocks,
+                                    int block_elems, void* stream) {
+  offset_copy_kernel<<<n_blocks, kThreads, 0, STREAM>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), block_elems);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P11: n_win windows; scratch null: each window in shared memory
+// (WA * WB * 512 <= 232,448 B); else scratch holds n_win windows.
+extern "C" int sf_probe_window_copy(const void* src, int A, int B,
+                                    const void* offs, int n_win, int WA,
+                                    int WB, void* scratch, void* out,
+                                    int out_rows, void* stream) {
+  size_t smem = 0;
+  if (scratch == nullptr) {
+    static bool opted_in = false;
+    cudaError_t err = allow_smem(window_copy_kernel, opted_in);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem = static_cast<size_t>(WA) * WB * 512;
+  }
+  window_copy_kernel<<<n_win, kBigThreads, smem, STREAM>>>(
+      static_cast<const float4*>(src), A, B, static_cast<const int*>(offs),
+      WA, WB, static_cast<float4*>(scratch), static_cast<float4*>(out),
+      out_rows * 32);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -13,7 +13,7 @@ _DATASETS = {"Synthetic": Synthetic}
 _NOT_PORTED = ("Replica", "ScanNet")
 
 
-def get_data(name: str, config_data, device=None):
+def get_data(name: str, config_data, device="cuda"):
     """The dataset ``name`` over ``config_data`` (a DATA section); frames
     that a dataset renders are rendered on ``device``."""
     if name in _NOT_PORTED:

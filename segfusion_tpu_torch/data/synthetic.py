@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..core.volume import Voxelgrid
+from ..device import resolve_device
 from ..ops.geometry import unproject
 from ..ops.raycast import render_depth
 
@@ -115,7 +116,8 @@ class Synthetic:
     intrinsics / mask / semantic_gt / frame_id; ``scenes``; ``get_grid``).
     Depth is rendered on ``device``; frames are returned as numpy."""
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, device="cuda"):
+        self.device = resolve_device(device)
         self.resx = int(config.resx)
         self.resy = int(config.resy)
         self.n_frames = int(config.get("n_frames", 20))
@@ -123,7 +125,6 @@ class Synthetic:
         self.resolution = float(config.get("voxel_resolution", 0.05))
         self.pad = int(config.get("pad", 2))
         self.seed = int(config.get("seed", 0))
-        self.device = device
         n_scenes = int(config.get("n_scenes", 1))
         self.scenes: List[str] = [f"synthetic_scene_{i}"
                                   for i in range(n_scenes)]

@@ -1,0 +1,152 @@
+"""Per-lane table lookups on the card (P6, P7).
+
+Port of ``tools/probe_dynamic_gather.py``:
+
+- ``gather_rows_sum`` replaces ``probe`` (``:25``, body ``:26``):
+  ``out[i, j] = sum_{k < inner} table[(idx[i, j] + k) % S, j]``, f32 or u32
+  (int32 tensors holding u32 bits; the add wraps);
+- ``take_lanes`` replaces ``probe_axis1`` (``:91``, body ``:94``):
+  ``out[i, j] = table[i, idx[i, j] % C]``.
+
+The tables stay in device memory at every S: at S = 32,768 a table is
+16 MiB, far above the 227 KB of shared memory one block can have, and the
+50 MB L2 holds it. Each result is held against its plain version before it
+is timed.
+
+    python -m segfusion_tpu_torch.probes.dynamic_gather [--device cpu]
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from . import _lib
+
+__all__ = ["gather_rows_sum", "gather_rows_sum_plain", "take_lanes",
+           "take_lanes_plain", "main", "launch_counts",
+           "reset_launch_counts"]
+
+INNER = 8
+
+
+def gather_rows_sum_plain(table: torch.Tensor, idx: torch.Tensor,
+                          inner: int = INNER) -> torch.Tensor:
+    """Shaped like ``idx``; summed in order of k from 0 (int32 adds wrap,
+    as u32 adds do: torch on the CPU has no uint32 add)."""
+    S = table.shape[0]
+    out = torch.zeros(idx.shape, dtype=table.dtype, device=table.device)
+    base = idx.long()
+    for k in range(inner):
+        out = out + torch.gather(table, 0, (base + k) % S)
+    return out
+
+
+def take_lanes_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.gather(table, 1, idx.long() % table.shape[1])
+
+
+def gather_rows_sum(table: torch.Tensor, idx: torch.Tensor,
+                    inner: int = INNER) -> torch.Tensor:
+    """P6 on the card (``gather_rows_sum_kernel``): ``table`` (S, C) f32 or
+    int32 (u32 bits), ``idx`` (R, C) int32."""
+    if _lib.on_cpu("gather_rows_sum", table, idx):
+        return gather_rows_sum_plain(table, idx, inner)
+    if table.dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"gather_rows_sum: table must be float32 or int32, "
+                        f"got {table.dtype}")
+    _lib.require("gather_rows_sum", "table", table, table.dtype, ndim=2)
+    _lib.require("gather_rows_sum", "idx", idx, torch.int32, ndim=2)
+    if idx.shape[1] != table.shape[1] or inner < 0:
+        raise ValueError("gather_rows_sum: idx must have the table's "
+                         f"columns, got {tuple(idx.shape)} for "
+                         f"{tuple(table.shape)}")
+    out = torch.empty(idx.shape, dtype=table.dtype, device=table.device)
+    _lib.launch("sf_probe_gather_rows_sum", "gather_rows_sum_kernel",
+                table.device, table, idx, out, table.shape[0],
+                table.shape[1], idx.numel(), inner,
+                int(table.dtype == torch.int32))
+    gather_rows_sum.launches += 1
+    return out
+
+
+def take_lanes(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """P7 on the card (``take_lanes_kernel``): ``table`` (R, C) f32, ``idx``
+    (R, C) int32."""
+    if _lib.on_cpu("take_lanes", table, idx):
+        return take_lanes_plain(table, idx)
+    _lib.require("take_lanes", "table", table, torch.float32, ndim=2)
+    _lib.require("take_lanes", "idx", idx, torch.int32, table.shape)
+    out = torch.empty_like(table)
+    _lib.launch("sf_probe_take_lanes", "take_lanes_kernel", table.device,
+                table, idx, out, table.shape[1], table.numel())
+    take_lanes.launches += 1
+    return out
+
+
+_WRAPPERS = (gather_rows_sum, take_lanes)
+
+
+def reset_launch_counts():
+    _lib.reset(_WRAPPERS)
+
+
+def launch_counts() -> dict:
+    return _lib.counts(_WRAPPERS)
+
+
+reset_launch_counts()
+
+
+def probe(S: int, dtype, dev, inner: int = INNER):
+    """The tool's ``probe`` at S table rows: one table replicated across
+    the 128 lanes (row s holds s / 2, truncated for u32), random rows."""
+    tab1 = torch.arange(S, dtype=torch.float32, device=dev) * 0.5
+    table = tab1[:, None].expand(S, 128).to(dtype).contiguous()
+    idx = torch.randint(0, S, (S, 128), dtype=torch.int32, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    _lib.check_equal(f"gather_rows_sum S={S}",
+                     gather_rows_sum(table, idx, inner),
+                     gather_rows_sum_plain(table, idx, inner))
+    ms = _lib.device_ms(lambda: gather_rows_sum(table, idx, inner), dev)
+    n = S * 128 * inner
+    name = "u32" if dtype == torch.int32 else "float32"
+    rate = ("" if ms is None else f" ({n / ms / 1e6:.2f} G/s)")
+    print(f"  S={S:6d} axis=0 {name}: "
+          f"{_lib.fmt(_lib.ns_per(ms, n), '.3f', ' ns/elem')}{rate}",
+          flush=True)
+
+
+def probe_axis1(dev):
+    """The tool's ``probe_axis1``: a (128, 128) table, lanes looked up per
+    row, checked against numpy."""
+    tab = np.random.RandomState(0).rand(128, 128).astype(np.float32)
+    idx = np.random.RandomState(1).randint(0, 128, (128, 128))
+    table = torch.as_tensor(tab, device=dev)
+    index = torch.as_tensor(idx, dtype=torch.int32, device=dev)
+    got = take_lanes(table, index).cpu().numpy()
+    if not np.array_equal(got, np.take_along_axis(tab, idx, axis=1)):
+        raise RuntimeError("take_lanes disagrees with numpy")
+    ms = _lib.device_ms(lambda: take_lanes(table, index), dev)
+    print(f"  axis=1 (128,128): works, "
+          f"{_lib.fmt(_lib.ns_per(ms, 128 * 128), '.3f', ' ns/elem')}",
+          flush=True)
+
+
+def main(device="cuda"):
+    dev = resolve_device(device)
+    print(_lib.device_line(dev), flush=True)
+    print(f"== gather-sum along rows (axis=0, per-lane table, {INNER} terms; "
+          "tables in device memory) ==", flush=True)
+    for S in (8, 64, 512, 4096, 8192, 32768):
+        probe(S, torch.float32, dev)
+    print("== axis=0, u32 (int32 bits, wrapping add) ==", flush=True)
+    probe(8192, torch.int32, dev)
+    print("== axis=1 (per-row lane lookup) ==", flush=True)
+    probe_axis1(dev)
+    print("done", flush=True)
+
+
+if __name__ == "__main__":
+    _lib.run_cli(main, __doc__)

@@ -1,32 +1,32 @@
 """Frame-stream inference, evaluation and mesh export for the port.
 
-    python -m segfusion_tpu_torch.test_fusion --config configs/fusion/<name>.yaml
+    python -m segfusion_tpu_torch.test_fusion --config configs/fusion/<name>.yaml [--device cpu]
 
 Counterpart of the JAX package's ``test_fusion.py``: stream every test
 frame through ``Pipeline.fuse_many``, outlier-filter the volumes,
 median-filter the label volumes, log the geometry, mesh F-score and
 semantic metrics, and save hdf5 volumes and ply meshes into a timestamped
-workspace under SETTINGS.experiment_path. Runs on CUDA when a card is
-visible, else on the CPU (the kernels' plain versions).
+workspace under SETTINGS.experiment_path. Runs on the card (``--device
+cuda``, the default) or, where the caller names it, on the CPU with the
+kernels' plain versions (``--device cpu``); asking for CUDA where torch
+sees no CUDA device raises.
 """
 
 from __future__ import annotations
 
 import argparse
 
-import torch
-
-from segfusion_tpu.utils.workspace import get_workspace
-
 from .config import get_data_config, with_defaults
 from .core.database import Database
 from .core.pipeline import Pipeline
 from .data import PrefetchLoader, get_data
+from .device import resolve_device
+from .utils.workspace import get_workspace
 
 __all__ = ["test_fusion"]
 
 
-def test_fusion(config, device=None, fusion_net=None, segmenter=None):
+def test_fusion(config, device="cuda", fusion_net=None, segmenter=None):
     """Fuse, filter, evaluate and save the test split of ``config`` (the
     JAX package's schema; missing keys take the port's defaults, filled in
     place). ``fusion_net`` / ``segmenter``: loaded nets (the segmenter a
@@ -34,7 +34,7 @@ def test_fusion(config, device=None, fusion_net=None, segmenter=None):
     net one is built with random weights from seed 0. Checkpoint paths in
     TESTING are not read yet. Returns the metrics dict."""
     with_defaults(config)
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     testing = config.TESTING
     workspace = get_workspace(config)
     test_cfg = get_data_config(config, "test")
@@ -106,10 +106,12 @@ def test_fusion(config, device=None, fusion_net=None, segmenter=None):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", required=True)
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="where to run (default: cuda; cpu runs the "
+                             "kernels' plain versions)")
     args = parser.parse_args(argv)
     from .config import load_config
-    test_fusion(load_config(args.config),
-                device="cuda" if torch.cuda.is_available() else "cpu")
+    test_fusion(load_config(args.config), device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,27 +1,24 @@
 """Marching-tetrahedra isosurface extraction on the host.
 
-The C++ mesher is the JAX package's ``segfusion_tpu/native/mcubes.cpp``
-(host code, no JAX), built with g++ by the ``_build`` helper into
-``build/segfusion_tpu_torch/`` with the JAX package's compiler flags, so
-both packages mesh a volume identically. The port does not load the
-library committed beside that source (it may have been built for another
-CPU) and has no numpy fallback: a failed build raises.
+The C++ mesher is ``csrc/mcubes.cpp``, a byte-for-byte copy of the JAX
+package's ``segfusion_tpu/native/mcubes.cpp``, built with g++ by the
+``_build`` helper into ``build/segfusion_tpu_torch/`` with the JAX
+package's compiler flags, so both packages mesh a volume identically. There
+is no numpy fallback: a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from pathlib import Path
 
 import numpy as np
-import segfusion_tpu.native
 
 from ..ops.kernels import _build
 
 __all__ = ["marching_cubes", "MCUBES_SOURCE"]
 
-MCUBES_SOURCE = Path(segfusion_tpu.native.__file__).parent / "mcubes.cpp"
+MCUBES_SOURCE = _build.CSRC / "mcubes.cpp"
 
 
 @functools.lru_cache(maxsize=None)

@@ -29,6 +29,7 @@ from segfusion_tpu_torch.config import Config
 from segfusion_tpu_torch.core.database import Database
 from segfusion_tpu_torch.core.volume import SceneVolume
 from segfusion_tpu_torch.data.synthetic import Synthetic
+from segfusion_tpu_torch.utils.workspace import Workspace as PortWorkspace
 
 
 def _data_config(**overrides):
@@ -48,7 +49,8 @@ def test_pad_shape_multiple_matches_jax():
         cfg = _data_config(voxel_resolution=0.05, semantic_grid=False,
                            pad_shape_multiple=multiple)
         jdb = JDatabase(JSynthetic(cfg), cfg)
-        db = Database(Synthetic(Config(cfg)), Config(cfg))
+        db = Database(Synthetic(Config(cfg), device="cpu"), Config(cfg),
+                  device="cpu")
         s = db.scenes[0]
         assert tuple(jdb.volumes[s].num.shape) == want
         assert tuple(db.volumes[s].num.shape) == want
@@ -81,7 +83,8 @@ def dbs():
     filter_semantics(5) on both."""
     cfg = _data_config()
     jdb = JDatabase(JSynthetic(cfg), cfg)
-    db = Database(Synthetic(Config(cfg)), Config(cfg))
+    db = Database(Synthetic(Config(cfg), device="cpu"), Config(cfg),
+                  device="cpu")
     s = db.scenes[0]
     num, w, key = _state(db, np.random.RandomState(0))
     jv = jdb.volumes[s]
@@ -192,12 +195,13 @@ def test_save_matches_jax(dbs, tmp_path):
 
 
 def test_save_to_workspace_matches_jax(dbs, tmp_path):
-    """The workspace savers (gzip hdf5, ply): the same datasets, the ply
-    byte-equal."""
+    """The workspace savers (gzip hdf5, ply), each package's own: the same
+    datasets, the ply byte-equal."""
     jdb, db = dbs
     outs = []
-    for name, d in (("jax", jdb), ("port", db)):
-        ws = Workspace(str(tmp_path / name), enable_tensorboard=False)
+    for name, d, ws_cls in (("jax", jdb, Workspace),
+                            ("port", db, PortWorkspace)):
+        ws = ws_cls(str(tmp_path / name), enable_tensorboard=False)
         d.save_to_workspace(ws, "val", save_mode="test")
         outs.append(ws.output_path)
     names = sorted(os.listdir(outs[0]))
@@ -223,7 +227,7 @@ def test_no_surface():
     """A TSDF without a zero crossing: get_mesh raises ValueError, as the
     JAX package's does; evaluate_fscore skips the scene."""
     cfg = Config(_data_config(semantic_grid=False))
-    empty = Database(Synthetic(cfg), cfg)
+    empty = Database(Synthetic(cfg, device="cpu"), cfg, device="cpu")
     s = empty.scenes[0]
     empty.update(s, empty.volumes[s])       # observed nowhere: tsdf = 0.24
     with pytest.raises(ValueError, match="no isosurface"):
@@ -242,7 +246,7 @@ def test_scene_without_gt_uses_create_grid():
             return Synthetic.get_grid(self, scene_id, initial_value)
 
     cfg = Config(_data_config())
-    db = Database(NoGt(cfg), cfg)
+    db = Database(NoGt(cfg, device="cpu"), cfg, device="cpu")
     jdb = JDatabase(JSynthetic(cfg), cfg)
     s = db.scenes[0]
     assert db.grid_shape[s] == jdb.grid_shape[s]
@@ -250,7 +254,7 @@ def test_scene_without_gt_uses_create_grid():
     np.testing.assert_array_equal(db.scenes_gt[s].numpy(),
                                   np.asarray(jdb.scenes_gt[s]))
     assert s not in db.ids_gt
-    got = Synthetic(cfg).create_grid(s, 0.24)
+    got = Synthetic(cfg, device="cpu").create_grid(s, 0.24)
     want = JSynthetic(cfg).create_grid(s, 0.24)
     assert got[1] is None and want[1] is None
     np.testing.assert_array_equal(got[0].volume, want[0].volume)

@@ -1,9 +1,9 @@
 """The port runs where there is no JAX: every module of
 ``segfusion_tpu_torch`` (its ``test_fusion`` entry point included) and
 ``chip_smoke.py`` import with ``jax``, ``jaxlib``, ``flax``, ``optax`` and
-``yaml`` blocked, and with the JAX package open only for its host-side
-modules that the port reuses (metrics, label maps, ply IO, the workspace
-and the native marching cubes), which import no JAX."""
+``yaml`` blocked, and with the whole ``segfusion_tpu`` namespace (the JAX
+package, host modules included) blocked too: the port keeps its own copies
+of what it needs."""
 
 import os
 import subprocess
@@ -15,16 +15,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml"}
-    REUSED = {"segfusion_tpu", "segfusion_tpu.utils",
-              "segfusion_tpu.utils.metrics", "segfusion_tpu.utils.mapping",
-              "segfusion_tpu.utils.meshio", "segfusion_tpu.utils.workspace",
-              "segfusion_tpu.native", "segfusion_tpu.native.mcubes"}
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "segfusion_tpu"}
 
     def refused(name):
-        top = name.split(".")[0]
-        return top in BLOCKED or (top == "segfusion_tpu"
-                                  and name not in REUSED)
+        return name.split(".")[0] in BLOCKED
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -40,6 +34,7 @@ _PROBE = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     assert "segfusion_tpu_torch.test_fusion" in names
+    assert "segfusion_tpu_torch.probes.random_access" in names
     leaked = sorted(m for m in sys.modules if refused(m))
     assert not leaked, leaked
     print(len(names))
@@ -51,8 +46,9 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # chip_smoke + the package's modules (ops, kernels, models, core, ...)
-    assert int(proc.stdout.split()[-1]) >= 27
+    # chip_smoke + the package's modules (ops, kernels, models, core,
+    # utils, probes, ...)
+    assert int(proc.stdout.split()[-1]) >= 41
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -95,8 +95,9 @@ def _run_port(cfg, frames, fparams, sparams):
                                              pcfg.SEMANTIC_2D_MODEL).eval())
     pipe = Pipeline(pcfg, segmenter=seg,
                     fusion_net=fusionnet_from_flax(*fparams,
-                                                   pcfg.FUSION_MODEL))
-    vol = init_scene_volume(VSHAPE, ORIGIN, RES, 0.1)
+                                                   pcfg.FUSION_MODEL),
+                    device="cpu")
+    vol = init_scene_volume(VSHAPE, ORIGIN, RES, 0.1, device="cpu")
     layout, rv = pipe._rows_from_volume(vol)
     stream = pipe.fuse_sequence_rows(
         layout, pipe._new_stream(layout, rv),
@@ -190,7 +191,7 @@ def test_fuse_many_matches_jax():
     labels, score 1)."""
     cfg = _small_data_config()
     jdata = JSynthetic(cfg.DATA)
-    pdata = Synthetic(Config(cfg).DATA)
+    pdata = Synthetic(Config(cfg).DATA, device="cpu")
     nf = cfg.DATA.n_frames
     idxs = [i for pair in zip(range(5), range(nf, nf + 5)) for i in pair]
     batches = [_batch(jdata[i]) for i in idxs]
@@ -205,10 +206,11 @@ def test_fuse_many_matches_jax():
     jpipe.fuse_many(batches, jdb, *fparams, chunk=4)
 
     pcfg = Config(cfg)
-    db = Database(pdata, pcfg.DATA)
+    db = Database(pdata, pcfg.DATA, device="cpu")
     assert db.scenes == jdb.scenes
     pipe = Pipeline(pcfg, fusion_net=fusionnet_from_flax(*fparams,
-                                                         pcfg.FUSION_MODEL))
+                                                         pcfg.FUSION_MODEL),
+                    device="cpu")
     pipe.fuse_many(batches, db, chunk=4)
     for s in jdb.scenes:
         jv, tv = jdb.volumes[s], db.volumes[s]
@@ -232,7 +234,8 @@ def test_synthetic_frames_match_jax():
     neighbouring voxel)."""
     cfg = _small_data_config()
     cfg.DATA.n_scenes = 1
-    jdata, pdata = JSynthetic(cfg.DATA), Synthetic(Config(cfg).DATA)
+    jdata = JSynthetic(cfg.DATA)
+    pdata = Synthetic(Config(cfg).DATA, device="cpu")
     for i in (0, 3):
         j, p = jdata[i], pdata[i]
         assert j["frame_id"] == p["frame_id"]

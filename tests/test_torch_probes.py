@@ -1,0 +1,435 @@
+"""Probe parity: every probe kernel of ``segfusion_tpu_torch/probes`` (its
+plain version, which the wrapper takes for a CPU tensor) against the
+Pallas kernel of the ``tools/`` probe it replaces, run in interpret mode on
+the CPU, on the same numpy inputs.
+
+How each JAX side runs (nothing in ``tools/`` changes):
+
+- ``dma_only_kernel`` (P1) and ``pallas_caps3``'s ``_win_kernel`` /
+  ``_flat_kernel`` (P11) are the tools' kernel functions, wrapped here in
+  ``pl.pallas_call(..., interpret=True)`` at small shapes;
+- ``probe_dynamic_gather.probe`` (P6), ``probe_pallas_caps.main`` (P8),
+  ``probe_pallas_caps2.main`` (P9, P10) and
+  ``probe_shadow_debug.roll_semantics`` (P12) run as they are inside
+  ``pltpu.force_tpu_interpret_mode()``; a recorder in place of
+  ``pl.pallas_call`` keeps each call's inputs and output;
+- the kernel bodies of ``probe_random_access.py`` (P2-P5) and
+  ``probe_axis1`` of ``probe_dynamic_gather.py`` (P7) sit inside functions
+  with their sizes and timing loops built in, so they are copied here
+  verbatim (file:line at each) at small sizes, with ``interpret=True``.
+
+Tolerance: bit-exact everywhere except two sums on random f32 data. P4
+(scatter-add): the port's CPU plain version adds in index order like the
+TPU loop, so it is exact here, but the card's shared-memory atomics add in
+no fixed order; the stated bound is |d| <= 1e-5 on bins of at most ~10
+standard normal updates (k - 1 roundings of 2^-24 relative each). P5 (box
+sum): the port sums the box's x-planes in order, ``jnp.sum`` in its own
+order; 8 terms in [0, 1) differ by at most a few ulp: rtol 1e-6, atol 1e-6.
+On the probes' own all-ones inputs both are exact.
+"""
+
+import functools
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+import probe_dynamic_gather  # noqa: E402
+import probe_pallas_caps  # noqa: E402
+import probe_pallas_caps2  # noqa: E402
+import probe_pallas_caps3  # noqa: E402
+import probe_shadow_debug  # noqa: E402
+import probe_shadow_variants  # noqa: E402
+
+from segfusion_tpu.ops.pallas import shadow_build as jsb  # noqa: E402
+from segfusion_tpu_torch.ops.rowvol import RowLayout  # noqa: E402
+from segfusion_tpu_torch.probes import (dynamic_gather, pallas_caps,  # noqa
+                                        pallas_caps2, pallas_caps3,
+                                        random_access, shadow_debug,
+                                        shadow_variants)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _record(run):
+    """Run ``run()`` in interpret mode with ``pl.pallas_call`` recording
+    each call: [(kernel name, [inputs], output)] as numpy."""
+    calls, real = [], pl.pallas_call
+
+    def recorder(kernel, *args, **kwargs):
+        fn = real(kernel, *args, **kwargs)
+
+        def call(*xs):
+            out = fn(*xs)
+            calls.append((kernel.__name__, [np.asarray(x) for x in xs],
+                          np.asarray(out)))
+            return out
+        return call
+
+    pl.pallas_call = recorder
+    try:
+        with pltpu.force_tpu_interpret_mode(), jax.disable_jit():
+            run()
+    finally:
+        pl.pallas_call = real
+    return calls
+
+
+# -- P1 -------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(6, 8, 40), (3, 12, 100)])
+def test_dma_only_matches_jax(shape):
+    """tools/probe_shadow_variants.py dma_only_kernel (:57) in the call of
+    dma_only (:96), interpreted: bit-exact."""
+    L = RowLayout.for_shape(shape)
+    X, Y, G, GK = L.X, L.Y, L.G, L.GK
+    TY = jsb._pick_ty(Y, 56)
+    NJ = Y // TY
+    geo = np.random.RandomState(0).randn(L.geo_rows, 128).astype(np.float32)
+    want = pl.pallas_call(
+        functools.partial(probe_shadow_variants.dma_only_kernel, TY=TY, Y=Y,
+                          G=G, GK=GK, NJ=NJ, N=X * NJ),
+        grid=(X, NJ),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
+        out_specs=pl.BlockSpec((1, TY * GK, 128), lambda x, j: (x, j, 0)),
+        out_shape=jax.ShapeDtypeStruct((X, Y * GK, 128), jnp.uint32),
+        scratch_shapes=[pltpu.VMEM((2, (TY + 2) * G, 128), jnp.float32),
+                        pltpu.SemaphoreType.DMA((2,))],
+        interpret=True)(jnp.asarray(geo))
+    got = shadow_variants.dma_only(_t(geo), L)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(want).reshape(L.shadow_rows, 128)
+        .view(np.int32))
+    assert shadow_variants.dma_only_bytes(L) == 2 * L.shadow_rows * 512
+
+
+# -- P2-P5: the bodies of tools/probe_random_access.py, copied --------------------
+
+VMEM = pl.BlockSpec(memory_space=pltpu.VMEM)
+
+
+def _jax_scalar_gather(table, idx):
+    n_idx = idx.shape[1]
+
+    # tools/probe_random_access.py:94-98
+    def kernel(table_ref, idx_ref, out_ref):
+        def body(i, _):
+            out_ref[0, i] = table_ref[0, idx_ref[0, i]]
+            return 0
+        jax.lax.fori_loop(0, n_idx, body, 0)
+
+    return pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((1, n_idx), jnp.float32),
+        in_specs=[VMEM, VMEM], out_specs=VMEM,
+        interpret=True)(jnp.asarray(table), jnp.asarray(idx))
+
+
+def _jax_vector_take(table, idx):
+    # tools/probe_random_access.py:128-129
+    def kernel(table_ref, idx_ref, out_ref):
+        out_ref[:, :] = jnp.take(table_ref[0, :], idx_ref[:, :], axis=0)
+
+    return pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct(idx.shape, jnp.float32),
+        in_specs=[VMEM, VMEM], out_specs=VMEM,
+        interpret=True)(jnp.asarray(table), jnp.asarray(idx))
+
+
+def _jax_scalar_rmw(idx, upd, nvox):
+    n_idx = idx.shape[1]
+
+    # tools/probe_random_access.py:162-169
+    def kernel(idx_ref, upd_ref, out_ref):
+        out_ref[:, :] = jnp.zeros_like(out_ref)
+
+        def body(i, _):
+            j = idx_ref[0, i]
+            out_ref[0, j] = out_ref[0, j] + upd_ref[0, i]
+            return 0
+        jax.lax.fori_loop(0, n_idx, body, 0)
+
+    return pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((1, nvox), jnp.float32),
+        in_specs=[VMEM, VMEM], out_specs=VMEM,
+        interpret=True)(jnp.asarray(idx), jnp.asarray(upd))
+
+
+def _jax_box_dma(vol, pos, box):
+    # tools/probe_random_access.py:200-211
+    def kernel(pos_ref, vol_ref, out_ref):
+        def inner(scratch, sem):
+            x, y, z = pos_ref[0], pos_ref[1], pos_ref[2]
+            dma = pltpu.make_async_copy(
+                vol_ref.at[pl.ds(x, box), pl.ds(y, box), pl.ds(z, box)],
+                scratch, sem)
+            dma.start()
+            dma.wait()
+            out_ref[:, :] = jnp.sum(scratch[:, :, :], axis=0)
+        pl.run_scoped(inner,
+                      scratch=pltpu.VMEM((box, box, box), jnp.float32),
+                      sem=pltpu.SemaphoreType.DMA(()))
+
+    return pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((box, box), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
+                  pl.BlockSpec(memory_space=pl.ANY)],
+        out_specs=VMEM, interpret=True)(jnp.asarray(pos), jnp.asarray(vol))
+
+
+@pytest.mark.parametrize("nvox", [512, 4096])
+def test_scalar_gather_matches_jax(nvox):
+    rng = np.random.RandomState(2)
+    table = rng.randn(1, nvox).astype(np.float32)
+    idx = rng.randint(0, nvox, (1, 256)).astype(np.int32)
+    want = _jax_scalar_gather(table, idx)
+    got = random_access.gather_smem(_t(table), _t(idx))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("nvox", [512, 4096, 64 ** 3])
+def test_vector_take_matches_jax(nvox):
+    """All three of the tool's table sizes; on the card the last gathers
+    from device memory (take_route)."""
+    rng = np.random.RandomState(3)
+    table = rng.randn(1, nvox).astype(np.float32)
+    idx = rng.randint(0, nvox, (8, 128)).astype(np.int32)
+    want = _jax_vector_take(table, idx)
+    got = random_access.take(_t(table), _t(idx))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert random_access.take_route(_t(table)) == (
+        "shared memory" if nvox <= 32 ** 3 else "device memory (L2)")
+
+
+@pytest.mark.parametrize("updates", ["ones", "normal"])
+def test_scatter_add_matches_jax(updates):
+    """Exact on the probe's all-ones updates; within 1e-5 on standard
+    normal ones (the card's atomics add in no fixed order)."""
+    rng = np.random.RandomState(4)
+    nvox, n = 512, 2048
+    idx = rng.randint(0, nvox, (1, n)).astype(np.int32)
+    upd = (np.ones((1, n), np.float32) if updates == "ones"
+           else rng.randn(1, n).astype(np.float32))
+    want = np.asarray(_jax_scalar_rmw(idx, upd, nvox))[0]
+    got = random_access.scatter_add(_t(idx), _t(upd), nvox).numpy()
+    if updates == "ones":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("data", ["ones", "uniform"])
+def test_box_sum_matches_jax(data):
+    """Exact on the probe's all-ones volume; rtol/atol 1e-6 on uniform
+    data (jnp.sum's order against the port's x-plane order)."""
+    side, box = 16, 8
+    vol = (np.ones((side,) * 3, np.float32) if data == "ones" else
+           np.random.RandomState(5).rand(side, side, side).astype(np.float32))
+    pos = np.array([3, 5, 2], np.int32)
+    want = np.asarray(_jax_box_dma(vol, pos, box))
+    got = random_access.box_sum(_t(vol), _t(pos), box).numpy()
+    if data == "ones":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_box_sum_clamps_the_start():
+    """A start past the far face reads the last box in the volume, as
+    lax.dynamic_slice clamps."""
+    vol = torch.as_tensor(
+        np.random.RandomState(6).rand(12, 12, 12).astype(np.float32))
+    far = random_access.box_sum(vol, torch.tensor([50, -3, 9],
+                                                  dtype=torch.int32), 4)
+    torch.testing.assert_close(far, vol[8:12, 0:4, 8:12].sum(0), rtol=1e-6,
+                               atol=1e-6)
+
+
+# -- P6 / P7 ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [8, 64])
+def test_dynamic_gather_matches_jax(S):
+    """tools/probe_dynamic_gather.py probe(S, inner=2), f32 and u32:
+    bit-exact (u32 as int32 bits, the add wrapping)."""
+    calls = _record(lambda: (probe_dynamic_gather.probe(S, reps=1, inner=2),
+                             probe_dynamic_gather.probe(S, jnp.uint32,
+                                                        reps=1, inner=2)))
+    dtypes = set()
+    for _, (table, idx), want in calls:
+        dtypes.add(want.dtype)
+        if want.dtype == np.uint32:
+            table, want = table.view(np.int32), want.view(np.int32)
+        got = dynamic_gather.gather_rows_sum(_t(table), _t(idx), inner=2)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert dtypes == {np.dtype(np.float32), np.dtype(np.uint32)}
+
+
+def test_gather_rows_sum_wraps_like_u32():
+    table = np.full((4, 128), 0xC0000000, np.uint32)
+    idx = np.zeros((4, 128), np.int32)
+    got = dynamic_gather.gather_rows_sum(_t(table.view(np.int32)), _t(idx),
+                                         inner=3)
+    want = (table.astype(np.uint64) * 3 % 2 ** 32).astype(np.uint32)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_take_lanes_matches_jax():
+    """probe_axis1 of tools/probe_dynamic_gather.py (:94-97), at (16, 128)."""
+    S = 16
+
+    def kernel(table_ref, idx_ref, out_ref):
+        out_ref[:, :] = jnp.take_along_axis(
+            table_ref[:, :], idx_ref[:, :], axis=1,
+            mode="promise_in_bounds")
+
+    tab = np.random.RandomState(0).rand(S, 128).astype(np.float32)
+    idx = np.random.RandomState(1).randint(0, 128, (S, 128)).astype(np.int32)
+    want = pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((S, 128), jnp.float32),
+        in_specs=[VMEM, VMEM], out_specs=VMEM,
+        interpret=True)(jnp.asarray(tab), jnp.asarray(idx))
+    got = dynamic_gather.take_lanes(_t(tab), _t(idx))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- P8 / P9 / P10 / P12 ------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def caps_calls():
+    return _record(probe_pallas_caps.main)
+
+
+@pytest.fixture(scope="module")
+def caps2_calls():
+    return _record(probe_pallas_caps2.main)
+
+
+def _check_body(calls, i, wrapper):
+    _, (x,), want = calls[i]
+    got = wrapper(_t(x))
+    if want.dtype == np.uint32:
+        want = want.view(np.int32)
+    assert got.numpy().dtype == want.dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+CAPS = [pallas_caps.f16_pack, pallas_caps.lane_swap, pallas_caps.roll64,
+        pallas_caps.reshape_slices, pallas_caps.qshift,
+        pallas_caps.iota_mask, pallas_caps.f16_unpack]
+CAPS2 = [pallas_caps2.store16, pallas_caps2.rolls_sum,
+         pallas_caps2.narrow_pad, pallas_caps2.regroup,
+         pallas_caps2.offset_copy]
+
+
+@pytest.mark.parametrize("i", range(len(CAPS)),
+                         ids=[f.__name__ for f in CAPS])
+def test_caps_bodies_match_jax(caps_calls, i):
+    """tools/probe_pallas_caps.py's seven bodies, in the order main runs
+    them, on its inputs: bit-exact."""
+    assert len(caps_calls) == len(CAPS)
+    _check_body(caps_calls, i, CAPS[i])
+
+
+@pytest.mark.parametrize("i", range(len(CAPS2)),
+                         ids=[f.__name__ for f in CAPS2])
+def test_caps2_bodies_match_jax(caps2_calls, i):
+    """tools/probe_pallas_caps2.py's four bodies and its dynamic-offset
+    copy (grid 4 x 8 rows of a (64, 128) input): bit-exact."""
+    assert len(caps2_calls) == len(CAPS2)
+    _check_body(caps2_calls, i, CAPS2[i])
+
+
+def test_f16_pack_rounds_to_nearest_even():
+    """Halfway cases, overflow and subnormals convert as XLA converts."""
+    x = np.array([[1 + 2 ** -11, 1 + 3 * 2 ** -11, 65520.0, 2 ** -25,
+                   -2 ** -24 * 1.5, 1e-8, -0.0, 70000.0]], np.float32)
+    with np.errstate(over="ignore"):
+        h = x.astype(np.float16)
+    b = h.view(np.uint16).astype(np.uint32)
+    want = ((b << 16) | b).view(np.int32)
+    np.testing.assert_array_equal(pallas_caps.f16_pack(_t(x)).numpy(), want)
+    back = pallas_caps.f16_unpack(pallas_caps.f16_pack(_t(x)).view(
+        torch.float32))
+    np.testing.assert_array_equal(back.numpy(), h.astype(np.float32))
+
+
+def test_roll_direction_matches_jax():
+    """tools/probe_shadow_debug.py roll_semantics: out[0] = x[127]."""
+    calls = _record(probe_shadow_debug.roll_semantics)
+    (_, (x,), want), = calls
+    got = shadow_debug.roll1(_t(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[0, 0] == 127
+
+
+# -- P11 --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("form", ["strided", "flat"])
+def test_window_copies_match_jax(form):
+    """tools/probe_pallas_caps3.py _win_kernel (:27) / _flat_kernel (:40)
+    in its own calls (:66, :82), at a (40, 28, 128) source with 4 copies:
+    bit-exact."""
+    RY, G, WY, WG, REPS = 40, 28, 10, 7, 4
+    rng = np.random.RandomState(0)
+    x3 = rng.rand(RY, G, 128).astype(np.float32)
+    offs = np.zeros(2 * REPS, np.int32)
+    if form == "strided":
+        offs[0::2] = rng.randint(0, RY - WY, REPS)
+        offs[1::2] = rng.randint(0, G - WG, REPS)
+        kernel = functools.partial(probe_pallas_caps3._win_kernel, R=RY,
+                                   WY=WY, WG=WG, REPS=REPS)
+        out_rows, scratch, src = WG, (WY, WG, 128), x3
+    else:
+        offs[0::2] = rng.randint(0, RY * G - WY * WG, REPS)
+        kernel = functools.partial(probe_pallas_caps3._flat_kernel,
+                                   R=RY * G, WN=WY * WG, REPS=REPS)
+        out_rows, scratch, src = WY * WG, (WY * WG, 128), \
+            x3.reshape(RY * G, 128)
+    want = pl.pallas_call(
+        kernel,
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=1, grid=(1,),
+            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
+            out_specs=pl.BlockSpec((out_rows, 128), lambda i, s: (0, 0)),
+            scratch_shapes=[pltpu.VMEM(scratch, jnp.float32),
+                            pltpu.SemaphoreType.DMA]),
+        out_shape=jax.ShapeDtypeStruct((out_rows, 128), jnp.float32),
+        interpret=True)(jnp.asarray(offs), jnp.asarray(src))
+    if form == "strided":
+        got = pallas_caps3.window_copy(_t(src), _t(offs), WY, WG)
+    else:
+        got = pallas_caps3.flat_copy(_t(src), _t(offs), WY * WG)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- the probes' entry points on the CPU ------------------------------------------
+
+@pytest.mark.parametrize("module", [
+    "shadow_debug", "pallas_caps", "pallas_caps2", "dynamic_gather",
+    "pallas_caps3", "random_access"])
+def test_probe_main_runs_on_cpu(module, capsys):
+    """Each probe's ``main(device="cpu")``: the plain versions, the tool's
+    checks, and "not measured" in place of every time."""
+    import importlib
+    importlib.import_module(f"segfusion_tpu_torch.probes.{module}").main(
+        device="cpu")
+    out = capsys.readouterr().out
+    assert "device: cpu" in out
+    assert " ms" not in out and "ns/elem" not in out
+
+
+def test_shadow_variants_main_runs_on_cpu(capsys):
+    shadow_variants.main(device="cpu", shape=(6, 8, 40))
+    out = capsys.readouterr().out
+    assert "not measured (cpu)" in out and "TY sweep" in out

@@ -49,11 +49,11 @@ def test_entry_point_matches_jax(tmp_path, monkeypatch):
         jax.random.PRNGKey(0), 48, 48)
     cfg = _port_config(tmp_path)
     monkeypatch.setattr(port_entry, "get_data",
-                        lambda name, data_cfg, device=None:
+                        lambda name, data_cfg, device:
                         JSynthetic(data_cfg))
     got = port_entry.test_fusion(
-        cfg, fusion_net=fusionnet_from_flax(params, stats,
-                                            cfg.FUSION_MODEL))
+        cfg, device="cpu", fusion_net=fusionnet_from_flax(params, stats,
+                                                          cfg.FUSION_MODEL))
 
     assert set(got) == set(want)
     for k in ("mse", "mad", "iou", "acc"):
@@ -90,7 +90,7 @@ def test_entry_point_refuses_what_is_not_ported(tmp_path, testing, data,
     cfg = _port_config(tmp_path, **testing)
     cfg.DATA.update(data)
     with pytest.raises(error, match="ROADMAP|semantic_2d_model_path"):
-        port_entry.test_fusion(cfg)
+        port_entry.test_fusion(cfg, device="cpu")
 
 
 class _Frames:
