@@ -14,7 +14,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    f32 geo state (a random canonical volume entered into slot form, then
    a few ``integrate_rows`` updates): shadow builds bit-exact, reconcile
    slot bit-exact, reconcile key exact; kernel and plain times from CUDA
-   events;
+   events, GB/s of minimum traffic and the fraction of the bound; then the
+   two shadow builds, full and dirty, bit-exact at the ragged shapes 84^3
+   and (96, 88, 84) in both dtypes;
 3b. the median kernel (K5) against its plain version on a 448^3 uint8
    label volume, sizes 5 and 3: bit-exact; times and voxels/s;
 3c. the probe kernels (``segfusion_tpu_torch/probes``, ``csrc/probes.cu``,
@@ -201,21 +203,29 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def random_shadow_and_mask(L, nj, dev, seed=1):
+    """A random previous shadow and a random 0.5 dirty-tile mask (with its
+    trailing sentinel), as a dirty build finds them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    prev = torch.randint(-2 ** 31, 2 ** 31 - 1, (L.shadow_rows, 128),
+                         generator=g, device=dev, dtype=torch.int32)
+    dirty = torch.cat([
+        (torch.rand(L.X * nj, generator=g, device=dev) < 0.5).int(),
+        torch.zeros(1, dtype=torch.int32, device=dev)])
+    return prev, dirty
+
+
 def check_kernels(dev):
     """Bit-exactness and times at 448^3; returns per-kernel results (bf16
-    geo, the headline dtype) for the JSON line."""
+    geo, the headline dtype; the shadow builds also with ``*_f32`` keys)
+    for the JSON line."""
     L = rowvol.RowLayout.for_shape(HEADLINE_SHAPE)
     ty, nj = rowvol.shadow_tiling(L)
     results = {}
     for geo_dtype in (torch.bfloat16, torch.float32):
         tag = str(geo_dtype).replace("torch.", "")
         geo, krows = slot_state(L, geo_dtype, dev)
-        g = torch.Generator(device=dev).manual_seed(1)
-        prev = torch.randint(-2 ** 31, 2 ** 31 - 1, (L.shadow_rows, 128),
-                             generator=g, device=dev, dtype=torch.int32)
-        dirty = torch.cat([
-            (torch.rand(L.X * nj, generator=g, device=dev) < 0.5).int(),
-            torch.zeros(1, dtype=torch.int32, device=dev)])
+        prev, dirty = random_shadow_and_mask(L, nj, dev)
         dirty_frac = float(dirty[:-1].float().mean())
 
         full_k = sb.build_shadow(geo, L, ty)
@@ -273,9 +283,11 @@ def check_kernels(dev):
             f"{nonzero} non-zero shadow words):")
         for name, ok in checks.items():
             k_ms, p_ms = times[name]
+            b_ms = bytes_ms(moved[name])
             log(f"  {name:20s} exact={ok} max_abs_err={errs[name]} "
                 f"kernel {k_ms:.4f} ms ({moved[name] / k_ms / 1e6:.1f} GB/s "
-                f"of minimum traffic)  plain {p_ms:.4f} ms")
+                f"of minimum traffic, bound {b_ms:.4f} ms, "
+                f"{b_ms / k_ms:.3f} of the bound)  plain {p_ms:.4f} ms")
             if not ok:
                 raise RuntimeError(f"{name} ({tag}) disagrees with its "
                                    "plain version")
@@ -283,12 +295,49 @@ def check_kernels(dev):
                 # no single PyTorch call computes a shadow build or a
                 # reconcile: library_ms is null
                 results[name] = {"max_abs_err": errs[name], "ms": k_ms,
-                                 "plain_ms": p_ms,
-                                 "bound_ms": bytes_ms(moved[name]),
+                                 "plain_ms": p_ms, "bound_ms": b_ms,
                                  "bound_by": "bytes", "library_ms": None}
+            elif name.startswith("build_shadow"):
+                results[name].update(max_abs_err_f32=errs[name], ms_f32=k_ms,
+                                     plain_ms_f32=p_ms, bound_ms_f32=b_ms)
         del geo, krows, prev, scratch, full_k, dirty_k, num_k, w_k, key_k
         torch.cuda.empty_cache()
+    check_ragged_shadow(dev)
     return results
+
+
+# the ragged shapes the shadow build must also take: Z % 32 != 0 with
+# G > 2 GK (84^3: GK 3, G 8) and a TY that is no multiple of 8 (pick_ty
+# gives 84); a small TY of 8 (Y = 88) over X = 96
+RAGGED_SHAPES = ((84, 84, 84), (96, 88, 84))
+
+
+def check_ragged_shadow(dev):
+    """The full and the dirty shadow build (a random 0.5 mask into a
+    random previous shadow) bit-exact against their plain versions at the
+    ragged shapes, bf16 and f32 geo."""
+    for shape in RAGGED_SHAPES:
+        L = rowvol.RowLayout.for_shape(shape)
+        ty, nj = rowvol.shadow_tiling(L)
+        for geo_dtype in (torch.bfloat16, torch.float32):
+            tag = str(geo_dtype).replace("torch.", "")
+            geo, _ = slot_state(L, geo_dtype, dev, seed=2)
+            prev, dirty = random_shadow_and_mask(L, nj, dev, seed=3)
+            full_k = sb.build_shadow(geo, L, ty)
+            full_p = sb.build_shadow_plain(geo, L)
+            dirty_k = sb.build_shadow_dirty(geo, prev.clone(), dirty, L, ty)
+            dirty_p = sb.build_shadow_dirty_plain(geo, prev.clone(), dirty,
+                                                  L, ty)
+            torch.cuda.synchronize()
+            exact = (torch.equal(full_k, full_p),
+                     torch.equal(dirty_k, dirty_p))
+            log(f"  shadow builds at {shape} {tag} (TY {ty}, NJ {nj}, G "
+                f"{L.G}, GK {L.GK}, dirty fraction "
+                f"{float(dirty[:-1].float().mean()):.3f}): build_shadow "
+                f"exact={exact[0]} build_shadow_dirty exact={exact[1]}")
+            if not all(exact):
+                raise RuntimeError(f"shadow build at {shape} ({tag}) "
+                                   "disagrees with its plain version")
 
 
 # -- phase 3b: the median kernel against its plain version --------------------

@@ -15,8 +15,10 @@ ctypes) or raises. Each wrapper counts its kernel launches in
 | reconcile_key        | shadow_build.py:576 reconcile_key_pallas        |
 
 (paths under ``segfusion_tpu/ops/pallas/``). The first two share one CUDA
-kernel: the full build passes no dirty flags. The source note in the .cu
-file says what bounds them on the card and what the design does about it.
+kernel, one block per (x, y-tile) tile that stages each geo row once in
+shared memory and reconciles each voxel once; the full build passes no
+dirty flags. The source note in the .cu file says what bounds them on the
+card and what the design does about it.
 
 ``layout`` is a ``rowvol.RowLayout``; ``ty`` the shadow y-tile height of
 ``rowvol.shadow_tiling`` (the dirty flags index (x, y-tile) tiles).
@@ -167,8 +169,15 @@ def _stream(t: torch.Tensor) -> int:
 
 def _launch_shadow(geo, out, dirty, layout, ty: int):
     L = layout
-    if L.Y % ty or L.X * (L.Y // ty) > 65535:
+    if ty <= 0 or L.Y % ty:
         raise ValueError(f"bad shadow tiling TY={ty} for {L}")
+    # the kernel copies geo rows and stores shadow words 16 bytes at a
+    # time: every geo row (G * 128 elements) and both bases must be
+    # 16-byte aligned
+    if ((L.G * 128 * geo.element_size()) % 16 or geo.data_ptr() % 16
+            or out.data_ptr() % 16):
+        raise ValueError("shadow build: geo rows and the shadow must be "
+                         "16-byte aligned")
     lib = _lib()
     _check(lib.sf_shadow_build(
         geo.data_ptr(), int(geo.dtype == torch.bfloat16), out.data_ptr(),

@@ -30,6 +30,10 @@ from segfusion_tpu_torch.core.database import Database
 from segfusion_tpu_torch.core.volume import SceneVolume
 from segfusion_tpu_torch.data.synthetic import Synthetic
 from segfusion_tpu_torch.utils.workspace import Workspace as PortWorkspace
+from test_torch_utils import jax_mcubes_private  # noqa: F401 (a fixture)
+
+# the JAX Database meshes with segfusion_tpu.native.mcubes
+pytestmark = pytest.mark.usefixtures("jax_mcubes_private")
 
 
 def _data_config(**overrides):

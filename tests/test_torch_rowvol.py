@@ -255,12 +255,14 @@ def test_reconcile_key_bit_exact(shape):
                                                  interpret=True)))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + [(16, 88, 84)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_build_shadow_bit_exact(shape, dtype):
     """Full and dirty builds on reachable states against the XLA build and
     the Pallas kernels (interpret); the dirty build with random flags
-    keeps every clean tile of a random previous shadow."""
+    keeps every clean tile of a random previous shadow. (16, 88, 84) has
+    the small y-tile (TY 8, 11 tiles per x) of chip_smoke.py's ragged
+    (96, 88, 84)."""
     L = trv.RowLayout.for_shape(shape)
     rng = np.random.RandomState(6)
     jg, tg = _geo_pair(reachable_geo(L, rng), dtype)
@@ -411,6 +413,26 @@ def test_integrate_rows_matches(shape, dtype, do_sem):
     tn, tw, tkk = trv.volume_from_rows(tg, tk, L)
     np.testing.assert_array_equal(tkk.numpy(), np.asarray(jkk))
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), **tol)
+
+
+@pytest.mark.parametrize("case", ["tiling", "geo", "out"])
+def test_shadow_launch_refuses_what_the_kernel_cannot_take(case):
+    """The shadow-build launcher checks the y-tiling and the 16-byte
+    alignment its copies and stores need before it loads the library."""
+    L = trv.RowLayout.for_shape((8, 16, 40))
+    geo = torch.zeros((L.geo_rows, 128))
+    out = torch.zeros((L.shadow_rows, 128), dtype=torch.int32)
+    ty = 16
+    if case == "tiling":
+        ty = 6
+    elif case == "geo":
+        geo = torch.zeros(L.geo_rows * 128 + 1)[1:].view(L.geo_rows, 128)
+    else:
+        out = torch.zeros(L.shadow_rows * 128 + 1,
+                          dtype=torch.int32)[1:].view(L.shadow_rows, 128)
+    with pytest.raises(ValueError, match="tiling" if case == "tiling"
+                       else "16-byte aligned"):
+        tsb._launch_shadow(geo, out, None, L, ty)
 
 
 def test_kernel_wrappers_take_plain_version_on_cpu_only():

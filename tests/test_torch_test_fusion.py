@@ -26,6 +26,7 @@ from segfusion_tpu.data.synthetic import Synthetic as JSynthetic
 from segfusion_tpu_torch import test_fusion as port_entry
 from segfusion_tpu_torch.config import Config
 from segfusion_tpu_torch.utils.convert import fusionnet_from_flax
+from test_torch_utils import jax_mcubes_private  # noqa: F401 (a fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG_SEM = os.path.join(ROOT, "configs", "fusion", "synthetic_semantic.yaml")
@@ -38,7 +39,7 @@ def _port_config(tmp_path, **testing):
     return cfg
 
 
-def test_entry_point_matches_jax(tmp_path, monkeypatch):
+def test_entry_point_matches_jax(tmp_path, monkeypatch, jax_mcubes_private):
     import test_fusion as jax_entry
 
     jcfg = load_config(CFG_SEM)

@@ -11,6 +11,7 @@ where torch sees no CUDA device; the CPU runs only where it is named.
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -25,6 +26,27 @@ from segfusion_tpu_torch.utils.mesh import MCUBES_SOURCE
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG_SEM = os.path.join(ROOT, "configs", "fusion", "synthetic_semantic.yaml")
+
+
+@pytest.fixture(scope="module")
+def jax_mcubes_private(tmp_path_factory):
+    """The JAX package's marching cubes, loaded from this worker's own
+    library. Its default library, ``segfusion_tpu/native/libmcubes.so``,
+    is built in place at first use, and a worker that loads it while
+    another is still writing it fails ("file too short"). The private one
+    lies in the worker's base temp directory, so each worker runs g++ once.
+    The native library must load: the numpy fallback meshes differently.
+    tests/test_torch_{database,test_fusion}.py import this fixture."""
+    from segfusion_tpu.native import mcubes as j_mcubes
+
+    lib_dir = tmp_path_factory.getbasetemp() / "jax_mcubes"
+    lib_dir.mkdir(exist_ok=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_mcubes, "_SO", str(lib_dir / "libmcubes.so"))
+        mp.setattr(j_mcubes, "_lib", None)
+        mp.setattr(j_mcubes, "_build_failed", False)
+        assert j_mcubes.native_available()
+        yield
 
 
 def _volumes(seed=0, shape=(20, 24, 16)):
@@ -91,7 +113,7 @@ def test_write_ply_bytes_match_jax(tmp_path, extras):
         (tmp_path / "jax.ply").read_bytes()
 
 
-def test_workspace_matches_jax(tmp_path, monkeypatch):
+def test_workspace_matches_jax(tmp_path, monkeypatch, jax_mcubes_private):
     """The same directory tree, config snapshot, hdf5 datasets and meshed
     ply; the port's workspace meshes with its own marching cubes."""
     from segfusion_tpu.config import load_config
@@ -108,8 +130,15 @@ def test_workspace_matches_jax(tmp_path, monkeypatch):
         ws.save_tsdf_data("v.tsdf.hf5", tsdf)
         ws.save_ply_data("v.ply", tsdf, voxel_size=0.05)
     port, jax_ = (tmp_path / name / "ws" / "t0" for name in ("port", "jax"))
+
+    def listing(path):
+        # tensorboardX names its event file after the second it was opened
+        # in; the two workspaces may open theirs in different seconds
+        return sorted(re.sub(r"^(events\.out\.tfevents\.)\d+\.", r"\1<s>.", n)
+                      for n in os.listdir(path))
+
     for sub in ("model", "logs", "output"):
-        assert sorted(os.listdir(port / sub)) == sorted(os.listdir(jax_ / sub))
+        assert listing(port / sub) == listing(jax_ / sub)
     assert (port / "config.json").read_text() == \
         (jax_ / "config.json").read_text()
     assert (port / "output" / "v.ply").read_bytes() == \
