@@ -18,7 +18,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    two shadow builds, full and dirty, bit-exact at the ragged shapes 84^3
    and (96, 88, 84) in both dtypes;
 3b. the median kernel (K5) against its plain version on a 448^3 uint8
-   label volume, sizes 5 and 3: bit-exact; times and voxels/s;
+   label volume (30 classes) and a full-byte one, sizes 5 and 3:
+   bit-exact; times and voxels/s; bit-exact at the ragged shapes too;
+   then K5's and P4's wrappers refusing a wrong dtype, size or bin count;
 3c. the probe kernels (``segfusion_tpu_torch/probes``, ``csrc/probes.cu``,
    the ports of the Pallas probes of ``tools/``) against their plain
    versions at the tools' own sizes: bit-exact, or within the stated
@@ -356,45 +358,105 @@ def label_volume(shape, dev, n_classes=30, block=16, salt=0.1, seed=0):
     return torch.where(salted, noise, vol).contiguous()
 
 
+# the ragged shapes the median must also take: Z no multiple of 4 or 16,
+# Y no multiple of 16, X no multiple of 8
+MEDIAN_RAGGED = ((33, 17, 5), (96, 88, 86), (84, 84, 84))
+
+
+def full_byte_volume(shape, dev, seed=1):
+    """uint8 uniform over 0..255: every pass of the radix select runs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, shape, generator=g, device=dev,
+                         dtype=torch.uint8)
+
+
 def check_median(dev):
-    """K5 bit-exact to its plain version at 448^3 for sizes 5 and 3;
-    returns the size-5 result for the JSON line."""
-    vol = label_volume(HEADLINE_SHAPE, dev)
-    vox = vol.numel()
+    """K5 bit-exact to its plain version at 448^3 for sizes 5 and 3, on
+    the 30-class label volume and on a full-byte one, and at the ragged
+    shapes; returns the size-5 30-class result for the JSON line, with
+    the size-3 and full-byte times beside it."""
+    vox = HEADLINE_SHAPE[0] * HEADLINE_SHAPE[1] * HEADLINE_SHAPE[2]
+    times = {}
     result = None
-    for size in (5, 3):
-        got = k5.median_filter3d(vol, size)
-        want = k5.median_filter3d_plain(vol, size)
-        torch.cuda.synchronize()
-        exact = torch.equal(got, want)
-        err = max_abs(got, want)
-        changed = float((got != vol).float().mean())
-        del got, want
-        k_ms = cuda_ms(lambda: k5.median_filter3d(vol, size), 20)
-        p_ms = cuda_ms(lambda: k5.median_filter3d_plain(vol, size), 2,
-                       warmup=1)
-        log(f"median_filter3d size {size} at 448^3 uint8 (30 classes, 10% "
-            f"salt; {changed:.3f} of voxels changed): exact={exact} "
-            f"max_abs_err={err} kernel {k_ms:.4f} ms "
-            f"({vox / k_ms / 1e6:.4g} Gvoxel/s)  plain {p_ms:.4f} ms "
-            f"({vox / p_ms / 1e6:.4g} Gvoxel/s)")
-        if not exact:
-            raise RuntimeError(f"median_filter3d size {size} disagrees with "
-                               "its plain version")
-        if size == 5:
-            # bytes: the volume read and written once; operations: the
-            # fewest comparisons a median of 125 values takes (124 per
-            # voxel), one operation each at the float32 rate. No single
-            # PyTorch call computes a 3-D median filter.
-            b_ms = bytes_ms(2 * vox)
-            o_ms = 124 * vox / F32_OPS_PER_S * 1e3
-            result = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                      "bound_ms": max(b_ms, o_ms),
-                      "bound_by": "bytes" if b_ms >= o_ms else "operations",
-                      "library_ms": None}
-    del vol
+    for kind, make in (("30 classes, 10% salt", label_volume),
+                       ("full-byte uniform", full_byte_volume)):
+        vol = make(HEADLINE_SHAPE, dev)
+        for size in (5, 3):
+            got = k5.median_filter3d(vol, size)
+            want = k5.median_filter3d_plain(vol, size)
+            torch.cuda.synchronize()
+            exact = torch.equal(got, want)
+            err = max_abs(got, want)
+            changed = float((got != vol).float().mean())
+            del got, want
+            k_ms = cuda_ms(lambda: k5.median_filter3d(vol, size), 20)
+            p_ms = cuda_ms(lambda: k5.median_filter3d_plain(vol, size), 2,
+                           warmup=1)
+            times[kind, size] = k_ms
+            log(f"median_filter3d size {size} at 448^3 uint8 ({kind}; "
+                f"{changed:.3f} of voxels changed): exact={exact} "
+                f"max_abs_err={err} kernel {k_ms:.4f} ms "
+                f"({vox / k_ms / 1e6:.4g} Gvoxel/s)  plain {p_ms:.4f} ms "
+                f"({vox / p_ms / 1e6:.4g} Gvoxel/s)")
+            if not exact:
+                raise RuntimeError(f"median_filter3d size {size} ({kind}) "
+                                   "disagrees with its plain version")
+            if size == 5 and make is label_volume:
+                # bytes: the volume read and written once; operations: the
+                # fewest comparisons a median of 125 values takes (124 per
+                # voxel), one operation each at the float32 rate. No
+                # single PyTorch call computes a 3-D median filter.
+                b_ms = bytes_ms(2 * vox)
+                o_ms = 124 * vox / F32_OPS_PER_S * 1e3
+                result = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                          "bound_ms": max(b_ms, o_ms),
+                          "bound_by": ("bytes" if b_ms >= o_ms
+                                       else "operations"),
+                          "library_ms": None}
+        del vol
+    result.update(ms_size3=times["30 classes, 10% salt", 3],
+                  ms_full_byte=times["full-byte uniform", 5],
+                  ms_full_byte_size3=times["full-byte uniform", 3])
+    for shape in MEDIAN_RAGGED:
+        for make in (label_volume, full_byte_volume):
+            vol = make(shape, dev)
+            for size in (5, 3):
+                exact = torch.equal(k5.median_filter3d(vol, size),
+                                    k5.median_filter3d_plain(vol, size))
+                if not exact:
+                    raise RuntimeError(
+                        f"median_filter3d size {size} at {shape} "
+                        f"({make.__name__}) disagrees with its plain version")
+    log(f"  median_filter3d exact at {MEDIAN_RAGGED}, sizes 5 and 3, 30 "
+        "classes and full-byte")
+    check_refusals(dev)
     torch.cuda.empty_cache()
     return result
+
+
+def check_refusals(dev):
+    """K5's and P4's wrappers refuse what their kernels do not take on a
+    CUDA tensor: a wrong dtype, an unknown size, too many bins."""
+    vol = torch.zeros((8, 8, 8), dtype=torch.int32, device=dev)
+    idx = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    upd = torch.ones((1, 4), device=dev)
+    cases = [
+        ("median int32", TypeError, lambda: k5.median_filter3d(vol, 5)),
+        ("median size 7", ValueError,
+         lambda: k5.median_filter3d(vol.to(torch.uint8), 7)),
+        ("scatter_add int64 indices", TypeError,
+         lambda: random_access.scatter_add(idx.long(), upd, 8)),
+        ("scatter_add oversize", ValueError,
+         lambda: random_access.scatter_add(
+             idx, upd, random_access.scatter_add_max_bins() + 1)),
+    ]
+    for what, error, call in cases:
+        try:
+            call()
+        except error:
+            continue
+        raise RuntimeError(f"{what}: the wrapper did not raise {error}")
+    log(f"  refusals on the card: {[what for what, _, _ in cases]} raise")
 
 
 # -- phase 3c: the probe kernels against their plain versions -----------------

@@ -15,8 +15,8 @@
 // output element (256 threads a block); sizes are the wrapper's to check.
 // The kernels use no fast-math: sums keep the order of the plain versions,
 // so every kernel is bit-exact to its plain version except the two whose
-// order the card does not fix (scatter_add: shared-memory atomics; noted
-// there).
+// order the card does not fix (scatter_add: distributed shared-memory
+// atomics; noted there).
 //
 // Per-kernel notes, in the order of the probe modules:
 //
@@ -44,15 +44,29 @@
 //    kernel; a larger one (64^3 f32, 1 MiB) is gathered straight from
 //    device memory, which the 50 MB L2 holds after the first touch.
 // P4 scatter_add_kernel <- probe_random_access.py probe_pallas_scalar_rmw
-//    (:157, body :162). out = 0; out[idx[i]] += upd[i]. Bound: bytes (the
-//    indices and updates read once, the output written once) and the rate
-//    of shared-memory atomics. Design: each block accumulates its share in
-//    a shared-memory copy of the output with atomicAdd, then adds its
-//    non-zero bins to the output (zeroed by the wrapper) with one global
-//    atomic each. The order of the float adds is not the TPU loop's and
-//    not fixed: exact where every partial sum is exact (the probe's
-//    all-ones updates, counts below 2^24), within a stated tolerance on
-//    random updates.
+//    (:157, body :162). out = 0; out[idx[i]] += upd[i], accumulated in
+//    on-chip memory as the TPU probe accumulated in VMEM. Bound: bytes
+//    (the indices and updates read once, the output written once: 0.65 MB,
+//    0.2 us at 65,536 updates into 32 K bins) and, at the probe's size,
+//    latency: the launch, the barriers, the atomics. A private copy of
+//    all bins per block would be zeroed and scanned whole in every block
+//    and need global atomics and a memset to combine. Design: one launch
+//    of one thread-block cluster (kCluster blocks) whose distributed
+//    shared memory holds the bins once, a slice of ceil(n_out / kCluster)
+//    bins per block, zeroed by its owner. Each round, every block reads
+//    its next 4,096 updates with coalesced loads and buckets them by owner
+//    block in its own shared memory (a local count, a prefix, a place);
+//    after a cluster barrier every block pulls its bucket from every
+//    block's stage (cluster.map_shared_rank, four loads in flight a
+//    thread) and adds it into its slice with local shared-memory atomics;
+//    a second barrier frees the stages. Remote atomicAdd into the owner's
+//    slice, one per update, was slower. At the end each block writes its
+//    slice with 16-byte stores: the output is written once, with no global
+//    atomic and no memset. n_out is at most kCluster times what a block
+//    holds beside its stage. The order of the float adds is not the TPU
+//    loop's and not fixed: exact where every partial sum is exact (the
+//    probe's all-ones updates, counts below 2^24), within a stated
+//    tolerance on random updates.
 // P5 box_sum_kernel <- probe_random_access.py probe_box_dma (:194, body
 //    :200). out[y, z] = sum over x < B of vol[x0 + x, y0 + y, z0 + z], the
 //    start read from device memory and clamped into the volume as
@@ -96,9 +110,12 @@
 // What bounds P8-P12 at the probes' sizes (4-64 KiB) is the launch itself;
 // they are there to hold the TPU bodies' semantics, not to be fast.
 
+#include <cooperative_groups.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -189,23 +206,99 @@ __global__ void gather_global_kernel(const float* __restrict__ table,
 
 // -- P4 -----------------------------------------------------------------------
 
-__global__ void scatter_add_kernel(const int* __restrict__ idx,
-                                   const float* __restrict__ upd, long long n,
-                                   float* __restrict__ out, int n_out) {
-  extern __shared__ float acc[];
-  for (int i = threadIdx.x; i < n_out; i += blockDim.x) acc[i] = 0.0f;
-  __syncthreads();
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = tid(); i < n; i += stride) {
-    const int j = idx[i];
-    if (static_cast<unsigned>(j) < static_cast<unsigned>(n_out))
-      atomicAdd(&acc[j], upd[i]);
+// The grid is one cluster of kCluster blocks; block `rank` owns
+// bins [rank * slice, (rank + 1) * slice) (slice a multiple of 4) at the
+// head of its dynamic shared memory, followed by its stage (one round's
+// kPerThread updates a thread, as (bin in the owner's slice, value bits),
+// bucketed by owner block), the buckets' counts and starts, and the
+// counts and starts of this block's buckets in every stage.
+constexpr int kCluster = 16;   // the non-portable maximum: 16 beat 8
+constexpr int kPerThread = 4;
+
+__global__ void __launch_bounds__(kBigThreads)
+scatter_add_kernel(const int* __restrict__ idx, const float* __restrict__ upd,
+                   long long n, float* __restrict__ out, int n_out,
+                   int slice) {
+  extern __shared__ __align__(16) float bins[];
+  int2* stage = reinterpret_cast<int2*>(bins + slice);
+  int* count = reinterpret_cast<int*>(stage + blockDim.x * kPerThread);
+  int* start = count + kCluster;      // of the own buckets
+  int* incoming = start + kCluster;   // of the bucket for this block
+  int* from = incoming + kCluster;    // in each block's stage
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int C = kCluster;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int t = threadIdx.x, nt = blockDim.x;
+  for (int i = t; i < slice; i += nt) bins[i] = 0.0f;
+  const long long chunk = static_cast<long long>(nt) * kPerThread;
+  for (long long r0 = 0; r0 < n; r0 += chunk * C) {
+    // route: each block takes the next chunk of updates (coalesced
+    // loads) and buckets them by owner in its own stage
+    if (t < C) count[t] = 0;
+    __syncthreads();
+    int key[kPerThread], pos[kPerThread];
+    float val[kPerThread];
+    const long long first = r0 + rank * chunk + t;
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const long long i = first + static_cast<long long>(k) * nt;
+      int j = i < n ? idx[i] : -1;
+      if (static_cast<unsigned>(j) >= static_cast<unsigned>(n_out)) j = -1;
+      key[k] = j;
+      val[k] = j >= 0 ? upd[i] : 0.0f;
+      pos[k] = j >= 0 ? atomicAdd(&count[j / slice], 1) : 0;
+    }
+    __syncthreads();
+    if (t == 0)
+      for (int o = 0, sum = 0; o < C; ++o) {
+        start[o] = sum;
+        sum += count[o];
+      }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k)
+      if (key[k] >= 0) {
+        const int o = key[k] / slice;
+        stage[start[o] + pos[k]] =
+            make_int2(key[k] - o * slice, __float_as_int(val[k]));
+      }
+    cluster.sync();   // every block's buckets are staged
+    // pull: this block's bucket from every stage in the cluster
+    // (distributed shared memory), kPerThread loads in flight a thread,
+    // each added into the own slice
+    if (t < C) {
+      incoming[t] = *cluster.map_shared_rank(count + rank, t);
+      from[t] = *cluster.map_shared_rank(start + rank, t);
+    }
+    __syncthreads();
+    int total = 0;
+    for (int src = 0; src < C; ++src) total += incoming[src];
+    for (int q0 = t; q0 < total; q0 += kPerThread * nt) {
+      int2 e[kPerThread];
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) {
+        int q = q0 + k * nt, src = 0;
+        e[k].x = -1;
+        if (q >= total) continue;
+        while (q >= incoming[src]) q -= incoming[src++];
+        e[k] = cluster.map_shared_rank(stage, src)[from[src] + q];
+      }
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k)
+        if (e[k].x >= 0) atomicAdd(&bins[e[k].x], __int_as_float(e[k].y));
+    }
+    cluster.sync();   // every bucket pulled before a stage is reused
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
-    const float v = acc[i];
-    if (v != 0.0f) atomicAdd(&out[i], v);
-  }
+  const int base = rank * slice;
+  const int count_out = min(slice, n_out - base);
+  if (count_out <= 0) return;
+  float* dst = out + base;
+  const int n_vec =
+      reinterpret_cast<uintptr_t>(dst) % 16 == 0 ? count_out / 4 : 0;
+  for (int i = t; i < n_vec; i += nt)
+    reinterpret_cast<float4*>(dst)[i] =
+        reinterpret_cast<const float4*>(bins)[i];
+  for (int i = 4 * n_vec + t; i < count_out; i += nt) dst[i] = bins[i];
 }
 
 // -- P5 -----------------------------------------------------------------------
@@ -452,17 +545,44 @@ extern "C" int sf_probe_gather_global(const void* table, int n_table,
                      static_cast<const int*>(idx), static_cast<float*>(out));
 }
 
-// P4: out (n_out,) f32, zeroed by the caller; n_out * 4 <= 232,448 B.
+// P4: out (n_out,) f32, every bin written (no zeroing needed); one
+// cluster of kCluster blocks, each holding ceil(n_out / kCluster) bins
+// rounded up to 4, a 32 KiB stage and 256 B of bucket counts, at most
+// 232,448 B together.
 extern "C" int sf_probe_scatter_add(const void* idx, const void* upd,
                                     long long n, void* out, int n_out,
                                     void* stream) {
   static bool opted_in = false;
-  cudaError_t err = allow_smem(scatter_add_kernel, opted_in);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scatter_add_kernel<<<staged_blocks(n), kBigThreads, n_out * 4, STREAM>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(upd), n,
-      static_cast<float*>(out), n_out);
-  return static_cast<int>(cudaGetLastError());
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        scatter_add_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          scatter_add_kernel,
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  const int slice = ((n_out + kCluster - 1) / kCluster + 3) / 4 * 4;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kCluster);
+  config.blockDim = dim3(kBigThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(slice) * 4
+                            + kBigThreads * kPerThread * 8 + kCluster * 16;
+  config.stream = STREAM;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, scatter_add_kernel, static_cast<const int*>(idx),
+      static_cast<const float*>(upd), n, static_cast<float*>(out), n_out,
+      slice);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // P5: vol (SX, SY, SZ) f32, pos (3,) int32 on the device, out (B, B).

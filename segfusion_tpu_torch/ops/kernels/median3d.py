@@ -7,8 +7,11 @@ For a CPU tensor it takes the plain version; for a CUDA tensor it launches
 the hand-written kernel of ``csrc/median3d.cu`` (built with nvcc for sm_90a
 at first use by ``_build``, loaded with ctypes) or raises. The kernel takes
 uint8 volumes (label ids) and sizes 3 and 5; the plain version any
-integer or float dtype and any odd size. The source note in the .cu file
-says what bounds the kernel on the card and what its design does about it.
+integer or float dtype and any odd size. The kernel packs four z-voxels
+into a 32-bit word and runs the bitwise radix select in byte lanes
+(``tests/test_torch_median.py`` holds a numpy model of that arithmetic
+against the JAX median); the source note in the .cu file says what bounds
+the kernel on the card and what its design does about it.
 Launches are counted in ``median_filter3d.launches``.
 """
 
@@ -93,7 +96,7 @@ def median_filter3d(volume: torch.Tensor, size: int = 5) -> torch.Tensor:
         raise ValueError("the median kernel takes a contiguous 3-D volume, "
                          f"got shape {tuple(volume.shape)}")
     X, Y, Z = volume.shape
-    if -(-X // 4) > 65535 or -(-Y // 8) > 65535:
+    if -(-X // 8) > 65535 or -(-Y // 16) > 65535:
         raise ValueError(f"volume {tuple(volume.shape)} exceeds the kernel's "
                          "grid")
     out = torch.empty_like(volume)

@@ -10,13 +10,14 @@ Port of ``tools/probe_random_access.py``. Its Pallas kernels become:
 | scatter_add | probe_pallas_scalar_rmw :157 (body :162)          |
 | box_sum     | probe_box_dma :194 (body :200)                    |
 
-Shared memory takes the place of VMEM. ``take`` gathers from shared memory
-where the table fits (up to 227 KB) and from device memory otherwise
-(``take_route``). The tool's parts that were no Pallas stay plain PyTorch
-timings: part 1 ``torch.take``, part 2 ``index_add_``, part 7 a one-hot
-``torch.matmul``. Times are device times of 20 calls replayed from one
-CUDA graph (``_lib.device_ms``) with fixed indices, where the tool rotated
-its indices inside one program.
+Shared memory takes the place of VMEM; ``scatter_add`` accumulates in the
+distributed shared memory of one thread-block cluster. ``take`` gathers
+from shared memory where the table fits (up to 227 KB) and from device
+memory otherwise (``take_route``). The tool's parts that were no Pallas
+stay plain PyTorch timings: part 1 ``torch.take``, part 2 ``index_add_``,
+part 7 a one-hot ``torch.matmul``. Times are device times of 20 calls
+replayed from one CUDA graph (``_lib.device_ms``) with fixed indices,
+where the tool rotated its indices inside one program.
 
     python -m segfusion_tpu_torch.probes.random_access [--device cpu]
 """
@@ -29,7 +30,8 @@ from ..device import resolve_device
 from . import _lib
 
 __all__ = ["gather_smem", "take", "scatter_add", "box_sum", "gather_plain",
-           "scatter_add_plain", "box_sum_plain", "take_route", "main",
+           "scatter_add_plain", "box_sum_plain", "take_route",
+           "scatter_add_max_bins", "SCATTER_CLUSTER", "main",
            "launch_counts", "reset_launch_counts"]
 
 
@@ -109,19 +111,37 @@ def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# P4's thread-block cluster (kCluster in csrc/probes.cu): 16 blocks, each
+# holding a slice of the bins, a 32 KiB stage (4 updates for each of its
+# 1,024 threads, 8 bytes each) and 4 x 16 bucket counts and starts in its
+# shared memory
+SCATTER_CLUSTER = 16
+_SCATTER_STAGE_BYTES = 1024 * 4 * 8 + 16 * 16
+
+
+def scatter_add_max_bins() -> int:
+    """The most f32 bins ``scatter_add`` takes: what the cluster's blocks'
+    shared memory holds beside their stages, each slice a multiple of 4
+    bins."""
+    return SCATTER_CLUSTER * ((_lib.SMEM_BYTES - _SCATTER_STAGE_BYTES)
+                              // 16 * 4)
+
+
 def scatter_add(idx: torch.Tensor, upd: torch.Tensor, n_out: int
                 ) -> torch.Tensor:
     """P4: (n_out,) f32 = 0, then upd[i] added at idx[i] (int32 in
-    [0, n_out)), accumulated in shared memory (n_out * 4 <= 227 KB). The
+    [0, n_out)), accumulated in the distributed shared memory of one
+    thread-block cluster (n_out at most ``scatter_add_max_bins()``). The
     order of the adds is not fixed."""
     if _lib.on_cpu("scatter_add", idx, upd):
         return scatter_add_plain(idx, upd, n_out)
     _lib.require("scatter_add", "idx", idx, torch.int32)
     _lib.require("scatter_add", "upd", upd, torch.float32, idx.shape)
-    if n_out * 4 > _lib.SMEM_BYTES:
-        raise ValueError(f"scatter_add: {n_out} f32 bins do not fit in "
-                         "shared memory")
-    out = torch.zeros(n_out, dtype=torch.float32, device=idx.device)
+    if not 0 < n_out <= scatter_add_max_bins():
+        raise ValueError(f"scatter_add: {n_out} f32 bins do not fit in the "
+                         f"shared memory of a {SCATTER_CLUSTER}-block "
+                         f"cluster (at most {scatter_add_max_bins()})")
+    out = torch.empty(n_out, dtype=torch.float32, device=idx.device)
     _lib.launch("sf_probe_scatter_add", "scatter_add_kernel", idx.device,
                 idx, upd, idx.numel(), out, n_out)
     scatter_add.launches += 1
@@ -214,8 +234,8 @@ def main(device="cuda"):
         print(f"  table {size} ({take_route(table)}): {_ns(ms, n)}",
               flush=True)
 
-    print("== 5. scatter-add into shared memory (P4 scatter_add) ==",
-          flush=True)
+    print("== 5. scatter-add into a cluster's shared memory "
+          "(P4 scatter_add) ==", flush=True)
     idx = torch.randint(0, nvox, (1, n), generator=gen(4), device=dev,
                         dtype=torch.int32)
     upd = torch.ones((1, n), device=dev)

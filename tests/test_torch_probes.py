@@ -229,6 +229,17 @@ def test_scatter_add_matches_jax(updates):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
+def test_scatter_add_limits():
+    """The cluster's bins: 16 blocks of 49,856 bins (232,448 B of shared
+    memory each, less a 32 KiB stage and 256 B of counts, in multiples of
+    4 bins); a tensor on neither the CPU nor a CUDA device is refused
+    before any check of the card."""
+    assert random_access.scatter_add_max_bins() == 16 * 49856
+    idx = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        random_access.scatter_add(idx, torch.ones((1, 4), device="meta"), 8)
+
+
 @pytest.mark.parametrize("data", ["ones", "uniform"])
 def test_box_sum_matches_jax(data):
     """Exact on the probe's all-ones volume; rtol/atol 1e-6 on uniform
