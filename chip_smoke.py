@@ -21,12 +21,17 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    label volume (30 classes) and a full-byte one, sizes 5 and 3:
    bit-exact; times and voxels/s; bit-exact at the ragged shapes too;
    then K5's and P4's wrappers refusing a wrong dtype, size or bin count;
-3c. the probe kernels (``segfusion_tpu_torch/probes``, ``csrc/probes.cu``,
-   the ports of the Pallas probes of ``tools/``) against their plain
-   versions at the tools' own sizes: bit-exact, or within the stated
-   tolerance (the scatter-add's atomics on random updates); kernel, plain
-   and library-call times, the traffic bound and the probe's rate; then
-   each probe module's ``main`` once, as ``python -m
+3c. the launch floor (an empty kernel of ``csrc/probes.cu``, printed as
+   ``launch_floor_ms``), then the probe kernels
+   (``segfusion_tpu_torch/probes``, ``csrc/probes.cu``, the ports of the
+   Pallas probes of ``tools/``) against their plain versions at the tools'
+   own sizes, the shared-memory gather and the offset copy also at ragged
+   and misaligned inputs: bit-exact, or
+   within the stated tolerance (the scatter-add's atomics on random
+   updates); kernel, plain and library-call times (under 0.1 ms: the
+   median of 5 replays of 200 calls in a CUDA graph, with the replays'
+   spread), the traffic bound and the probe's rate; then each probe
+   module's ``main`` once, as ``python -m
    segfusion_tpu_torch.probes.<name>`` runs it;
 4. the headline configuration through ``Pipeline.fuse_sequence_rows``:
    AdapNet++ stage 2 + FusionNet v3 (growth factor 6, semantics), 448^3
@@ -476,10 +481,31 @@ class Case(NamedTuple):
     tol: float = 0.0                 # 0: bit-exact
 
 
-def device_ms(fn, dev, eager_ms: float) -> float:
-    """``eager_ms``, or for a call under 0.1 ms the graph-replay time."""
-    return (eager_ms if eager_ms >= 0.1
-            else probe_lib.device_ms(fn, dev, 20))
+# calls under 0.1 ms: REPLAY_ITERS calls in one CUDA graph, replayed
+# REPLAYS times; the median replay, with the spread of the replays
+REPLAY_ITERS, REPLAYS = 200, 5
+
+
+def device_ms(fn, dev, eager_ms: float):
+    """(ms per call, [min, max] over the replays): ``eager_ms`` and no
+    spread for a call of 0.1 ms or more, else the graph replays'."""
+    if eager_ms >= 0.1:
+        return eager_ms, None
+    t = sorted(probe_lib.device_times(fn, dev, REPLAY_ITERS, REPLAYS))
+    return t[len(t) // 2], [t[0], t[-1]]
+
+
+def spread_text(ms, spread) -> str:
+    return (f"{ms:.6f}" if spread is None
+            else f"{ms:.6f} [{spread[0]:.6f}-{spread[1]:.6f}]")
+
+
+def launch_floor(dev):
+    """Log the empty kernel of csrc/probes.cu, timed as the probes are:
+    what any launch costs in a graph replay on this card."""
+    ms, spread = device_ms(lambda: probe_lib.noop(dev), dev, 0.0)
+    log(f"launch_floor_ms {spread_text(ms, spread)} (an empty kernel; "
+        f"{REPLAYS} replays of {REPLAY_ITERS} calls in one CUDA graph)")
 
 
 def touched(flat_index: torch.Tensor, size: int) -> int:
@@ -517,11 +543,27 @@ def gather_cases(dev, g):
     table = torch.randn((1, 32 ** 3), generator=g, device=dev)
     idx = randint(32 ** 3, 1, n)
     i64 = idx.long()
+    # (default arguments bind the inputs: ``idx`` is rebound below)
     cases.append(Case("gather_smem 32^3 table, 65536 indices", "gather_smem",
-                      lambda: ra.gather_smem(table, idx),
-                      lambda: ra.gather_plain(table, idx),
+                      lambda idx=idx: ra.gather_smem(table, idx),
+                      lambda idx=idx: ra.gather_plain(table, idx),
                       lambda: torch.take(table, i64),
                       4 * touched(i64, 32 ** 3) + 8 * n, n))
+    # ragged and misaligned: a table of 1,001 floats (head and tail by
+    # thread loads), views 4 bytes past a 16-byte boundary (the table;
+    # the indices, which then go as scalars), 999 indices (a scalar tail)
+    for size, m_table, m_idx, count in ((512, 0, 0, n), (1001, 0, 0, n),
+                                        (32 ** 3, 1, 0, n),
+                                        (1001, 1, 1, 999)):
+        t = torch.randn(size + m_table, generator=g, device=dev)[m_table:]
+        ix = randint(size, count + m_idx)[m_idx:]
+        for fn in (ra.gather_smem, ra.take):
+            cases.append(Case(
+                f"{fn.__name__} {size} table{' (misaligned view)' * m_table}"
+                f", {count} indices{' (misaligned view)' * m_idx}", None,
+                lambda fn=fn, t=t, ix=ix: fn(t[None], ix[None]),
+                lambda t=t, ix=ix: ra.gather_plain(t[None], ix[None]), None,
+                4 * touched(ix.long(), size) + 8 * count, count))
     for size in (512, 32 ** 3, 64 ** 3):
         t = torch.randn((1, size), generator=g, device=dev)
         ix = randint(size, n // 128, 128)
@@ -644,10 +686,23 @@ def lane_cases(dev, g):
         (sd.roll1, x8, lambda: torch.roll(x8, 1, 1), 2 * n8),
     ]
     plain = c1.PLAIN | c2.PLAIN | {sd.roll1: sd.roll1_plain}
-    return [Case(f"{fn.__name__} {tuple(x.shape)}", fn.__name__,
-                 lambda fn=fn, x=x: fn(x), lambda fn=fn, x=x: plain[fn](x),
-                 lib, nbytes)
-            for fn, x, lib, nbytes in table]
+    cases = [Case(f"{fn.__name__} {tuple(x.shape)}", fn.__name__,
+                  lambda fn=fn, x=x: fn(x), lambda fn=fn, x=x: plain[fn](x),
+                  lib, nbytes)
+             for fn, x, lib, nbytes in table]
+    # P10 on a misaligned view of x (scalar) and on 3-row blocks of
+    # (64, 126) (a 16-byte head and tail in every block)
+    mis = torch.randn(64 * 128 + 1, generator=g, device=dev)[1:] \
+        .reshape(64, 128)
+    odd = torch.randn((64, 126), generator=g, device=dev)
+    for label, x, args in (("(64, 128) misaligned view", mis, ()),
+                           ("(64, 126), 4 blocks of 3 rows", odd, (4, 3))):
+        cases.append(Case(f"offset_copy {label}", None,
+                          lambda x=x, args=args: c2.offset_copy(x, *args),
+                          lambda x=x, args=args: c2.offset_copy_plain(
+                              x, *args), None,
+                          2 * c2.offset_copy_plain(x, *args).numel() * 4))
+    return cases
 
 
 def probe_counts() -> dict:
@@ -658,19 +713,24 @@ def probe_counts() -> dict:
 
 
 def check_probes(dev):
-    """Every probe kernel against its plain version at the tools' sizes;
+    """The launch floor, then every probe kernel against its plain version
+    at the tools' sizes (and P2/P3/P10 at ragged and misaligned inputs);
     returns the kernels-line results, then runs each probe's main once
     with the launch counts reset and returns those counts too.
 
     Times come from CUDA events around 20 back-to-back calls; where such
     a call takes under 0.1 ms, the host's launch overhead is most of it,
-    and the kernel's (or library call's) time is taken instead from 20
-    calls captured in a CUDA graph and replayed (``probes._lib.device_ms``).
-    ``eager_ms`` is the back-to-back time, host overhead included; plain
-    versions are timed that way only."""
+    and the kernel's (or library call's) time is taken instead from
+    REPLAY_ITERS calls captured in a CUDA graph and replayed REPLAYS
+    times (``probes._lib.device_times``): the median replay, with the
+    spread of the replays. ``eager_ms`` is the back-to-back time, host
+    overhead included; plain versions are timed that way only."""
     g = torch.Generator(device=dev).manual_seed(7)
     results = {}
-    log("probe kernels (csrc/probes.cu) against their plain versions:")
+    launch_floor(dev)
+    log("probe kernels (csrc/probes.cu) against their plain versions "
+        f"(times under 0.1 ms: median of {REPLAYS} replays of "
+        f"{REPLAY_ITERS} calls [min-max]):")
     for case in copy_cases(dev, g) + gather_cases(dev, g) + lane_cases(dev,
                                                                        g):
         got, want = case.kernel(), case.plain()
@@ -680,25 +740,28 @@ def check_probes(dev):
               if case.tol == 0 else err <= case.tol)
         del got, want
         e_ms = cuda_ms(case.kernel, 20)
-        k_ms = device_ms(case.kernel, dev, e_ms)
+        k_ms, k_spread = device_ms(case.kernel, dev, e_ms)
         p_ms = cuda_ms(case.plain, 3, warmup=1)
-        l_ms = (device_ms(case.library, dev, cuda_ms(case.library, 20))
-                if case.library else None)
+        l_ms, l_spread = (device_ms(case.library, dev,
+                                    cuda_ms(case.library, 20))
+                          if case.library else (None, None))
         b_ms = bytes_ms(case.nbytes)
         rate = (f"{k_ms * 1e6 / case.elems:.4f} ns/elem" if case.elems
                 else f"{case.nbytes / k_ms / 1e6:.1f} GB/s")
-        lib = "n/a" if l_ms is None else f"{l_ms:.4f}"
+        lib = "n/a" if l_ms is None else spread_text(l_ms, l_spread)
         log(f"  {case.label}: {'exact' if case.tol == 0 else 'tol'}="
-            f"{ok} max_abs_err={err} kernel_ms {k_ms:.4f} (eager_ms "
-            f"{e_ms:.4f}) plain_ms {p_ms:.4f} library_ms {lib} bound_ms "
-            f"{b_ms:.6f} ({rate})")
+            f"{ok} max_abs_err={err} kernel_ms {spread_text(k_ms, k_spread)}"
+            f" (eager_ms {e_ms:.4f}) plain_ms {p_ms:.4f} library_ms {lib} "
+            f"bound_ms {b_ms:.6f} ({rate})")
         if not ok:
             raise RuntimeError(f"{case.label}: the kernel disagrees with its "
                                "plain version")
         if case.name:
             results[case.name] = {"max_abs_err": err, "ms": k_ms,
                                   "plain_ms": p_ms, "bound_ms": b_ms,
-                                  "bound_by": "bytes", "library_ms": l_ms}
+                                  "bound_by": "bytes", "library_ms": l_ms,
+                                  "ms_spread": k_spread,
+                                  "library_ms_spread": l_spread}
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for m in PROBES:

@@ -78,6 +78,12 @@ class Pipeline:
                 and segmenter is None):
             raise ValueError("semantic_strategy 'predict' needs a segmenter")
         s = config.SETTINGS
+        # the flat scalar path (and SETTINGS.gather_precision, which only
+        # it reads) is not ported: refuse it rather than run the row path
+        if s.get("integration", "rows") == "scalar":
+            raise NotImplementedError(
+                "SETTINGS.integration 'scalar' (the flat scalar path) is not "
+                "ported (ROADMAP Queue 1 #5); use the row path ('rows')")
         # dirty-shadow carry: rebuild only the tiles the previous step's
         # integration touched (bit-identical; the mask is conservative)
         self.dirty_shadow = s.get("dirty_shadow", "on") != "off"

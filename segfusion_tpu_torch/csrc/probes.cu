@@ -31,18 +31,31 @@
 //    reads only the row it writes.
 // P2 gather_smem_kernel <- tools/probe_random_access.py
 //    probe_pallas_scalar_gather (:89, body :94). out[i] = table[idx[i]]
-//    with the table held on chip. Bound: the table, the indices and the
-//    output read or written once, but per element a shared-memory load at
-//    a random address (bank conflicts). Design: each block stages the whole
-//    table (up to 227 KB, the dynamic shared-memory opt-in) with contiguous
-//    loads, then gathers its share of the indices from shared memory; the
-//    grid stays small (one block per 8,192 indices, at most one per SM) so
-//    the staging is paid few times.
+//    with the table held on chip (indices outside it read 0). Bound: every
+//    block that gathers needs the whole table in its shared memory, so
+//    each SM it runs on receives the table (128 KiB at the probe's 32^3);
+//    measured on the H100, one SM takes it in at ~90 GB/s (bulk copy and
+//    thread loads together; the bulk copy alone ~77 GB/s), so the launch,
+//    one round trip for the indices and ~1.4 us of staging are the floor,
+//    while the bytes that must move (table, indices, output) take 0.2 us
+//    at 3.35 TB/s. Design: kGatherBlocks blocks of kGatherThreads, one
+//    16-byte index vector a thread, loaded first so it is in flight while
+//    the table lands; thread 0 starts the TMA's 1-D bulk copy of the
+//    table's 16-byte-aligned body (cp.async.bulk on an mbarrier expecting
+//    its bytes) before the block's first barrier, the block's threads load
+//    the body's last 3/8 and the ragged head and tail (a table at any
+//    4-byte phase keeps that phase in shared memory) meanwhile, then the
+//    gather and 16-byte stores. Measured and dropped (PERF.md): the
+//    bulk copy alone (~0.3 us slower) and a thread-block cluster that
+//    multicasts each block's slice to all (less L2 traffic, ~2 us more in
+//    cluster launch and barriers at every grid).
 // P3 gather_smem_kernel / gather_global_kernel <- probe_random_access.py
 //    probe_pallas_vector_take (:123, body :128). The same function in the
-//    TPU's vector form. A table that fits in shared memory takes P2's
-//    kernel; a larger one (64^3 f32, 1 MiB) is gathered straight from
-//    device memory, which the 50 MB L2 holds after the first touch.
+//    TPU's vector form. A table that fits in shared memory (232,416 B:
+//    the opt-in less the barrier's 16-byte slot and 16 for the phase)
+//    takes P2's kernel; a larger one (64^3 f32, 1 MiB) is gathered
+//    straight from device memory, which the 50 MB L2 holds after the
+//    first touch.
 // P4 scatter_add_kernel <- probe_random_access.py probe_pallas_scalar_rmw
 //    (:157, body :162). out = 0; out[idx[i]] += upd[i], accumulated in
 //    on-chip memory as the TPU probe accumulated in VMEM. Bound: bytes
@@ -91,7 +104,14 @@
 // P9 store16 / rolls_sum / narrow_pad / regroup <- tools/probe_pallas_caps2.py
 //    tryk (:18), bodies :34-66.
 // P10 offset_copy_kernel <- probe_pallas_caps2.py main (:30, call :82, body
-//    k_dma :73): block k copies rows [k R, k R + R) and adds 1.
+//    k_dma :73): block k copies rows [k R, k R + R) at its dynamic offset
+//    and adds 1. Bound: the launch (16 KiB move in 0.01 us). Design: one
+//    16-byte vector a thread, one load and one store, with no other
+//    arithmetic where x is 16-byte aligned and R C a multiple of 4 (a
+//    template of its own); a misaligned x or a ragged block takes scalar
+//    heads and tails. The TPU body's form, a bulk copy of the block's rows
+//    into shared memory on an mbarrier, was measured and dropped (~0.14 us
+//    slower; PERF.md).
 // P11 window_copy_kernel <- tools/probe_pallas_caps3.py main (:51; bodies
 //    _win_kernel :27 and _flat_kernel :40): n windows of (WA, WB, 128) f32
 //    at dynamic offsets (the contiguous form is WB = 1), each copied into a
@@ -109,6 +129,7 @@
 //
 // What bounds P8-P12 at the probes' sizes (4-64 KiB) is the launch itself;
 // they are there to hold the TPU bodies' semantics, not to be fast.
+// noop_kernel, an empty block, measures that launch floor on the card.
 
 #include <cooperative_groups.h>
 #include <cuda_fp16.h>
@@ -126,12 +147,6 @@ constexpr int kMaxSmem = 232448;
 
 inline unsigned blocks_for(long long n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
-}
-
-// one block per 8,192 elements, at most one per SM (132 on an H100 SXM)
-inline unsigned staged_blocks(long long n) {
-  long long b = (n + 8191) / 8192;
-  return static_cast<unsigned>(b < 1 ? 1 : (b > 132 ? 132 : b));
 }
 
 __device__ __forceinline__ long long tid() {
@@ -177,21 +192,129 @@ __global__ void dma_only_kernel(const uint4* __restrict__ geo,
   out[t] = val;
 }
 
+// -- TMA bulk copies and mbarriers (P2, P3) ----------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// an mbarrier expecting one arrival (the issuing thread's expect_tx),
+// made visible to the async proxy (the fence's only scope is the cluster)
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+// wait for the completion of the barrier's first phase (parity 0)
+__device__ __forceinline__ void mbar_wait0(uint32_t bar) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n\t"
+      "@!p bra WAIT;\n}" ::"r"(bar)
+      : "memory");
+}
+
+// global -> this block's shared memory, `bytes` (a multiple of 16, both
+// addresses 16-aligned), completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // -- P2 / P3 ------------------------------------------------------------------
 
-__global__ void gather_smem_kernel(const float* __restrict__ table,
-                                   int n_table, const int* __restrict__ idx,
-                                   float* __restrict__ out, long long n) {
-  extern __shared__ float tab[];
-  for (int i = threadIdx.x; i < n_table; i += blockDim.x) tab[i] = table[i];
-  __syncthreads();
+// the grid of the shared-route gather (at most; fewer blocks where the
+// indices' 16-byte vectors fill fewer), and the eighths of the table's
+// body the block's threads load beside the bulk copy
+constexpr int kGatherBlocks = 32;
+constexpr int kGatherThreads = 512;
+constexpr int kGatherThreadEighths = 3;
+// 16-byte table loads a thread keeps in flight in its share of the staging
+constexpr int kStageBatch = 4;
+
+// indices outside the table read 0 (the plain version raises there)
+__device__ __forceinline__ float take1(const float* tab, int n_table, int j) {
+  return static_cast<unsigned>(j) < static_cast<unsigned>(n_table) ? tab[j]
+                                                                   : 0.0f;
+}
+
+// Dynamic shared memory: a 16-byte slot for the mbarrier, then the table at
+// the same phase modulo 16 as in device memory (tab = smem + 16 + phase).
+// The table splits into a head of up to 3 floats before its first 16-byte
+// boundary, a body of `units` 16-byte units and a tail of up to 3 floats.
+// Thread 0 bulk-copies the body's first `bulk` units; the block's threads
+// load its last units - bulk (3/8 of n_table / 4) and the head and tail
+// themselves while the copy lands. Indices go as 16-byte vectors (vec_idx:
+// idx and out 16-aligned), the first one a thread loaded before the wait,
+// then a scalar tail of n % 4.
+__global__ void __launch_bounds__(kGatherThreads)
+gather_smem_kernel(const float* __restrict__ table, int n_table,
+                   const int* __restrict__ idx, float* __restrict__ out,
+                   long long n, int vec_idx) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int phase = static_cast<int>(reinterpret_cast<uintptr_t>(table) & 15);
+  float* tab = reinterpret_cast<float*>(smem + 16 + phase);
+  const int head = min(((16 - phase) & 15) >> 2, n_table);
+  const int units = (n_table - head) >> 2;
+  const int tail0 = head + 4 * units;
+  const int bulk =
+      units - min(n_table / 4 * kGatherThreadEighths / 8, units);
+  const uint32_t bar = smem_addr(smem);
+  const int t = threadIdx.x;
+  const long long nvec = vec_idx ? n >> 2 : 0;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = tid(); i < n; i += stride) {
-    const int j = idx[i];
-    // indices outside the table read 0 (the plain version raises there)
-    out[i] = static_cast<unsigned>(j) < static_cast<unsigned>(n_table)
-                 ? tab[j] : 0.0f;
+  const long long v0 = tid();
+  const int4* idx4 = reinterpret_cast<const int4*>(idx);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  // the first index vector is in flight while the table lands
+  const int4 first = v0 < nvec ? idx4[v0] : make_int4(0, 0, 0, 0);
+  if (t == 0 && bulk > 0) {
+    mbar_init(bar);
+    mbar_expect_tx(bar, static_cast<uint32_t>(bulk) * 16);
+    bulk_load(smem_addr(tab + head), table + head,
+              static_cast<uint32_t>(bulk) * 16, bar);
   }
+  // the threads' share of the body (16-byte loads, kStageBatch in flight
+  // a thread) and the head and tail, while the bulk copy lands
+  const float4* body = reinterpret_cast<const float4*>(table + head);
+  float4* tab_body = reinterpret_cast<float4*>(tab + head);
+  for (int u = bulk + t; u < units; u += kStageBatch * blockDim.x) {
+    float4 r[kStageBatch];
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int w = u + k * blockDim.x;
+      if (w < units) r[k] = body[w];
+    }
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int w = u + k * blockDim.x;
+      if (w < units) tab_body[w] = r[k];
+    }
+  }
+  for (int i = t; i < head + n_table - tail0; i += blockDim.x) {
+    const int j = i < head ? i : tail0 + i - head;
+    tab[j] = table[j];
+  }
+  __syncthreads();   // the barrier's init, the threads' own table stores
+  if (bulk > 0) mbar_wait0(bar);
+  for (long long v = v0; v < nvec; v += stride) {
+    const int4 j = v == v0 ? first : idx4[v];
+    out4[v] = make_float4(take1(tab, n_table, j.x), take1(tab, n_table, j.y),
+                          take1(tab, n_table, j.z), take1(tab, n_table, j.w));
+  }
+  for (long long i = 4 * nvec + v0; i < n; i += stride)
+    out[i] = take1(tab, n_table, idx[i]);
 }
 
 __global__ void gather_global_kernel(const float* __restrict__ table,
@@ -468,12 +591,55 @@ __global__ void regroup_kernel(const float* __restrict__ x,
 
 // -- P10 ----------------------------------------------------------------------
 
+// Block (k, s) of the grid (n_blocks, S) takes part s of block k's rows,
+// elements [k E, (k + 1) E) at the dynamic offset k E, one 16-byte vector
+// a thread. kAligned (x and out 16-aligned, E a multiple of 4): nothing
+// else. Otherwise, with vec (x and out 16-aligned) the vectors start after
+// a head of up to 3 floats to the first 16-byte boundary, and the head
+// and the tail of up to 3 floats (every element without vec) are scalar.
+template <bool kAligned>
 __global__ void offset_copy_kernel(const float* __restrict__ x,
-                                   float* __restrict__ out, int block_elems) {
+                                   float* __restrict__ out, int block_elems,
+                                   int vec) {
+  const int t = blockIdx.y * blockDim.x + threadIdx.x;
+  if (kAligned) {
+    const int nv = block_elems >> 2;
+    if (t < nv) {
+      const long long i = static_cast<long long>(blockIdx.x) * nv + t;
+      float4 a = reinterpret_cast<const float4*>(x)[i];
+      a.x += 1.0f;
+      a.y += 1.0f;
+      a.z += 1.0f;
+      a.w += 1.0f;
+      reinterpret_cast<float4*>(out)[i] = a;
+    }
+    return;
+  }
   const long long base = static_cast<long long>(blockIdx.x) * block_elems;
-  for (int i = threadIdx.x; i < block_elems; i += blockDim.x)
-    out[base + i] = x[base + i] + 1.0f;
+  const int stride = gridDim.y * blockDim.x;
+  const int head = vec ? min((4 - static_cast<int>(base & 3)) & 3,
+                             block_elems) : 0;
+  const int nv = vec ? (block_elems - head) >> 2 : 0;
+  const float4* x4 = reinterpret_cast<const float4*>(x + base + head);
+  float4* o4 = reinterpret_cast<float4*>(out + base + head);
+  for (int v = t; v < nv; v += stride) {
+    float4 a = x4[v];
+    a.x += 1.0f;
+    a.y += 1.0f;
+    a.z += 1.0f;
+    a.w += 1.0f;
+    o4[v] = a;
+  }
+  for (int s = t; s < block_elems - 4 * nv; s += stride) {
+    const long long i = base + (s < head ? s : s + 4 * nv);
+    out[i] = x[i] + 1.0f;
+  }
 }
+
+// -- the launch floor ---------------------------------------------------------
+
+// does nothing: its time is what any launch costs
+__global__ void noop_kernel() {}
 
 // -- P11 ----------------------------------------------------------------------
 
@@ -523,16 +689,26 @@ extern "C" int sf_probe_dma_only(const void* geo, void* out, int X, int Y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// P2/P3, table in shared memory (n_table * 4 <= 232,448 B).
+// P2/P3, table in shared memory (16 + (table % 16) + n_table * 4 <=
+// 232,448 B): at most kGatherBlocks blocks of kGatherThreads.
 extern "C" int sf_probe_gather_smem(const void* table, int n_table,
                                     const void* idx, void* out, long long n,
                                     void* stream) {
   static bool opted_in = false;
-  cudaError_t err = allow_smem(gather_smem_kernel, opted_in);
+  const cudaError_t err = allow_smem(gather_smem_kernel, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gather_smem_kernel<<<staged_blocks(n), kBigThreads, n_table * 4, STREAM>>>(
+  const size_t smem = 16 + (reinterpret_cast<uintptr_t>(table) & 15) +
+                      static_cast<size_t>(n_table) * 4;
+  const int vec_idx =
+      ((reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(out))
+       & 15) == 0;
+  // one index vector a thread, on no more blocks than that fills
+  const long long need = (n + 4 * kGatherThreads - 1) / (4 * kGatherThreads);
+  const unsigned blocks = static_cast<unsigned>(
+      need < 1 ? 1 : (need < kGatherBlocks ? need : kGatherBlocks));
+  gather_smem_kernel<<<blocks, kGatherThreads, smem, STREAM>>>(
       static_cast<const float*>(table), n_table, static_cast<const int*>(idx),
-      static_cast<float*>(out), n);
+      static_cast<float*>(out), n, vec_idx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -695,12 +871,32 @@ extern "C" int sf_probe_regroup(const void* x, void* out, int D, long long n,
                      static_cast<float*>(out), D);
 }
 
-// P10: blocks of block_elems elements, x and out at least n_blocks *
-// block_elems long.
+// P10: n_blocks blocks of block_elems elements, x and out at least
+// n_blocks * block_elems long; one 16-byte vector a thread where x and out
+// are 16-aligned, else one element.
 extern "C" int sf_probe_offset_copy(const void* x, void* out, int n_blocks,
                                     int block_elems, void* stream) {
-  offset_copy_kernel<<<n_blocks, kThreads, 0, STREAM>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), block_elems);
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out))
+       & 15) == 0;
+  const int vec_units = aligned ? (block_elems + 3) / 4 : block_elems;
+  const int threads = vec_units < kThreads
+                          ? (vec_units + 31) / 32 * 32 : kThreads;
+  const dim3 grid(n_blocks, (vec_units + threads - 1) / threads);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  if (aligned && block_elems % 4 == 0)
+    offset_copy_kernel<true><<<grid, threads, 0, STREAM>>>(xf, of,
+                                                           block_elems, 1);
+  else
+    offset_copy_kernel<false><<<grid, threads, 0, STREAM>>>(
+        xf, of, block_elems, aligned);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch floor: one empty block.
+extern "C" int sf_probe_noop(void* stream) {
+  noop_kernel<<<1, 32, 0, STREAM>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 """What the probe modules share: the CUDA library of ``csrc/probes.cu``,
 the launch and the argument checks of its wrappers, their launch counters,
-and device timing.
+device timing and the launch floor.
 
 ``csrc/probes.cu`` is built with nvcc for sm_90a at first use
 (``ops/kernels/_build``) and loaded with ctypes. A wrapper takes its plain
@@ -48,6 +48,7 @@ _SIGNATURES = {
     "sf_probe_regroup": [_P, _P, _I, _L],
     "sf_probe_offset_copy": [_P, _P, _I, _I],
     "sf_probe_window_copy": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _I],
+    "sf_probe_noop": [],
 }
 
 
@@ -154,14 +155,15 @@ def counts(wrappers) -> dict:
     return {fn.__name__: fn.launches for fn in wrappers}
 
 
-def device_ms(fn, device, iters: int = 20, replays: int = 1):
-    """Mean device milliseconds per call of ``fn`` on a CUDA device:
-    ``iters`` calls captured in one CUDA graph (after two warm-up calls)
-    and replayed ``replays`` times between CUDA events, so the host's
-    launch overhead between the calls drops out, as the TPU probes
-    amortised theirs inside one program. ``fn`` must be capturable (no
-    host synchronisation). On the CPU ``fn`` runs once and the result is
-    None: a host clock does not time the card."""
+def device_times(fn, device, iters: int = 20, replays: int = 1):
+    """Device milliseconds per call of ``fn`` on a CUDA device, one value
+    per replay: ``iters`` calls captured in one CUDA graph (after two
+    warm-up calls), the graph replayed once untimed and then ``replays``
+    times, each replay between its own CUDA events, so the host's launch
+    overhead between the calls drops out, as the TPU probes amortised
+    theirs inside one program. ``fn`` must be capturable (no host
+    synchronisation). On the CPU ``fn`` runs once and the result is None:
+    a host clock does not time the card."""
     device = torch.device(device)
     if device.type != "cuda":
         fn()
@@ -174,16 +176,27 @@ def device_ms(fn, device, iters: int = 20, replays: int = 1):
         for _ in range(iters):
             fn()
     graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(replays + 1)]
+    events[0].record()
+    for e in events[1:]:
         graph.replay()
-    end.record()
+        e.record()
     torch.cuda.synchronize(device)
-    ms = start.elapsed_time(end) / (iters * replays)
     del graph
-    return ms
+    return [a.elapsed_time(b) / iters for a, b in zip(events, events[1:])]
+
+
+def device_ms(fn, device, iters: int = 20, replays: int = 1):
+    """The median of ``device_times`` (None on the CPU)."""
+    times = device_times(fn, device, iters, replays)
+    return None if times is None else sorted(times)[len(times) // 2]
+
+
+def noop(device):
+    """Launch the empty kernel of ``csrc/probes.cu`` on ``device``'s
+    current stream: its time is the launch floor every kernel pays."""
+    launch("sf_probe_noop", "noop_kernel", device)
 
 
 def fmt(value, spec: str = ".4f", unit: str = "") -> str:

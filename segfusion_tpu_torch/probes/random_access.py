@@ -10,14 +10,15 @@ Port of ``tools/probe_random_access.py``. Its Pallas kernels become:
 | scatter_add | probe_pallas_scalar_rmw :157 (body :162)          |
 | box_sum     | probe_box_dma :194 (body :200)                    |
 
-Shared memory takes the place of VMEM; ``scatter_add`` accumulates in the
+Shared memory takes the place of VMEM: ``gather_smem`` stages the table
+there with the TMA's bulk copy, and ``scatter_add`` accumulates in the
 distributed shared memory of one thread-block cluster. ``take`` gathers
-from shared memory where the table fits (up to 227 KB) and from device
-memory otherwise (``take_route``). The tool's parts that were no Pallas
-stay plain PyTorch timings: part 1 ``torch.take``, part 2 ``index_add_``,
-part 7 a one-hot ``torch.matmul``. Times are device times of 20 calls
-replayed from one CUDA graph (``_lib.device_ms``) with fixed indices,
-where the tool rotated its indices inside one program.
+from shared memory where the table fits (up to 227 KB less 32 B) and
+from device memory otherwise (``take_route``). The tool's parts that were
+no Pallas stay plain PyTorch timings: part 1 ``torch.take``, part 2
+``index_add_``, part 7 a one-hot ``torch.matmul``. Times are device
+times of 20 calls replayed from one CUDA graph (``_lib.device_ms``) with
+fixed indices, where the tool rotated its indices inside one program.
 
     python -m segfusion_tpu_torch.probes.random_access [--device cpu]
 """
@@ -31,6 +32,7 @@ from . import _lib
 
 __all__ = ["gather_smem", "take", "scatter_add", "box_sum", "gather_plain",
            "scatter_add_plain", "box_sum_plain", "take_route",
+           "GATHER_SMEM_MAX_BYTES",
            "scatter_add_max_bins", "SCATTER_CLUSTER", "main",
            "launch_counts", "reset_launch_counts"]
 
@@ -69,9 +71,15 @@ def _check_gather(name, table, idx):
     _lib.require(name, "idx", idx, torch.int32)
 
 
+# the largest table the shared route takes: its shared memory also holds
+# a 16-byte slot for the bulk copy's mbarrier and up to 12 bytes that keep
+# the table at its device-memory phase modulo 16
+GATHER_SMEM_MAX_BYTES = _lib.SMEM_BYTES - 32
+
+
 def take_route(table: torch.Tensor) -> str:
     """Where ``take`` gathers ``table`` from on the card."""
-    return ("shared memory" if table.numel() * 4 <= _lib.SMEM_BYTES
+    return ("shared memory" if table.numel() * 4 <= GATHER_SMEM_MAX_BYTES
             else "device memory (L2)")
 
 
@@ -87,13 +95,15 @@ def _launch_gather(table, idx, smem: bool):
 
 def gather_smem(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """P2: out[i] = table[idx[i]] with the table staged in shared memory
-    (at most 227 KB of f32); ``idx`` int32 in [0, table.numel())."""
+    by the TMA's bulk copy (at most ``GATHER_SMEM_MAX_BYTES``, any
+    alignment); ``idx`` int32 in [0, table.numel())."""
     if _lib.on_cpu("gather_smem", table, idx):
         return gather_plain(table, idx)
     _check_gather("gather_smem", table, idx)
-    if table.numel() * 4 > _lib.SMEM_BYTES:
+    if table.numel() * 4 > GATHER_SMEM_MAX_BYTES:
         raise ValueError(f"gather_smem: a {table.numel() * 4} B table does "
-                         "not fit in shared memory")
+                         f"not fit in shared memory (at most "
+                         f"{GATHER_SMEM_MAX_BYTES} B)")
     out = _launch_gather(table, idx, smem=True)
     gather_smem.launches += 1
     return out

@@ -243,3 +243,20 @@ def test_synthetic_frames_match_jax():
         close = np.abs(p["depth_gt"] - j["depth_gt"]) <= 1e-4
         assert close.mean() >= 0.99
         assert (p["semantic_gt"] == j["semantic_gt"]).mean() >= 0.99
+
+
+def test_port_refuses_scalar_integration():
+    """SETTINGS.integration 'scalar' sends the JAX Pipeline down its flat
+    scalar path (row_path false; only that path reads gather_precision),
+    which the port does not have: the port's Pipeline refuses the setting
+    instead of silently running the row path."""
+    cfg = _small_data_config()
+    cfg.SETTINGS.update(integration="scalar", gather_precision="f32")
+    jpipe = JPipeline(cfg)
+    assert not jpipe.row_path
+    assert not jpipe.packed16_gather
+    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
+        Pipeline(Config(cfg), device="cpu")
+    cfg.SETTINGS.integration = "rows"
+    assert JPipeline(cfg).row_path
+    assert Pipeline(Config(cfg), device="cpu").frame_block == 1

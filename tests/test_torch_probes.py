@@ -188,28 +188,149 @@ def _jax_box_dma(vol, pos, box):
         out_specs=VMEM, interpret=True)(jnp.asarray(pos), jnp.asarray(vol))
 
 
-@pytest.mark.parametrize("nvox", [512, 4096])
-def test_scalar_gather_matches_jax(nvox):
+# table sizes of the gather tests: the tool's, a ragged 1,001 floats (a
+# 16-byte tail) and a 32^3 table seen 4 bytes past a 16-byte boundary
+GATHER_SIZES = [(512, 0), (4096, 0), (1001, 0), (32 ** 3, 0), (32 ** 3, 1)]
+
+
+def _table_view(rng, nvox, offset):
+    """(numpy table (1, nvox), the same values as a torch view ``offset``
+    floats into its storage)."""
+    flat = rng.randn(nvox + offset).astype(np.float32)
+    return flat[None, offset:], torch.as_tensor(flat)[offset:][None]
+
+
+@pytest.mark.parametrize("nvox,offset", GATHER_SIZES,
+                         ids=[f"{n}{'-misaligned' * o}"
+                              for n, o in GATHER_SIZES])
+def test_scalar_gather_matches_jax(nvox, offset):
     rng = np.random.RandomState(2)
-    table = rng.randn(1, nvox).astype(np.float32)
+    table, view = _table_view(rng, nvox, offset)
     idx = rng.randint(0, nvox, (1, 256)).astype(np.int32)
     want = _jax_scalar_gather(table, idx)
-    got = random_access.gather_smem(_t(table), _t(idx))
+    got = random_access.gather_smem(view, _t(idx))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("nvox", [512, 4096, 64 ** 3])
-def test_vector_take_matches_jax(nvox):
-    """All three of the tool's table sizes; on the card the last gathers
-    from device memory (take_route)."""
+TAKE_SIZES = [(512, 0), (4096, 0), (64 ** 3, 0), (1001, 0), (32 ** 3, 0),
+              (32 ** 3, 1)]
+
+
+@pytest.mark.parametrize("nvox,offset", TAKE_SIZES,
+                         ids=[f"{n}{'-misaligned' * o}"
+                              for n, o in TAKE_SIZES])
+def test_vector_take_matches_jax(nvox, offset):
+    """The tool's three table sizes and the ragged and misaligned ones; on
+    the card the 64^3 table is gathered from device memory (take_route)."""
     rng = np.random.RandomState(3)
-    table = rng.randn(1, nvox).astype(np.float32)
+    table, view = _table_view(rng, nvox, offset)
     idx = rng.randint(0, nvox, (8, 128)).astype(np.int32)
     want = _jax_vector_take(table, idx)
-    got = random_access.take(_t(table), _t(idx))
+    got = random_access.take(view, _t(idx))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert random_access.take_route(_t(table)) == (
+    assert random_access.take_route(view) == (
         "shared memory" if nvox <= 32 ** 3 else "device memory (L2)")
+
+
+# gather_smem_kernel's grid and staging split (csrc/probes.cu constants;
+# test_gather_model_constants_match_the_kernel holds them to the source)
+GATHER_BLOCKS, GATHER_THREADS, GATHER_THREAD_EIGHTHS = 32, 512, 3
+_SMEM_BYTES = 232448
+
+
+def gather_model(phase, n_table, n, vec_idx=True):
+    """numpy model of how gather_smem_kernel (csrc/probes.cu) splits its
+    work: the grid (at most GATHER_BLOCKS blocks of GATHER_THREADS, one
+    16-byte index vector a thread); the table (at byte ``phase`` modulo
+    16 in device memory) into a head of thread loads up to its first
+    16-byte boundary, a body of 16-byte units whose first part thread 0
+    bulk-copies and whose last 3/8 of n_table / 4 units the threads load,
+    and a tail of thread loads; and the ``n`` indices over the grid's
+    threads, as 16-byte vectors (the first prefetched before the wait)
+    and a scalar tail. Returns (the number of blocks; per block, how
+    often each table float lands in its shared memory; how often each
+    index is gathered; the bulk copy as (device byte offset, shared byte
+    offset, bytes) or None; the barrier's expected bytes; the shared
+    memory the launch asks for)."""
+    need = -(-n // (4 * GATHER_THREADS))
+    blocks = max(1, min(need, GATHER_BLOCKS))
+    head = min(((16 - phase) & 15) >> 2, n_table)
+    units = (n_table - head) >> 2
+    tail0 = head + 4 * units
+    bulk = units - min(n_table // 4 * GATHER_THREAD_EIGHTHS // 8, units)
+    landed = np.zeros((blocks, n_table), np.int64)
+    copy = None
+    if bulk > 0:
+        landed[:, head:head + 4 * bulk] += 1
+        copy = (phase + 4 * head, 16 + phase + 4 * head, 16 * bulk)
+    for u in range(bulk, units):
+        landed[:, head + 4 * u:head + 4 * u + 4] += 1
+    for i in range(head + n_table - tail0):
+        landed[:, i if i < head else tail0 + i - head] += 1
+    seen = np.zeros(n, np.int64)
+    nvec = n >> 2 if vec_idx else 0
+    stride = blocks * GATHER_THREADS
+    for v0 in range(stride):
+        for v in range(v0, nvec, stride):
+            seen[4 * v:4 * v + 4] += 1
+        for i in range(4 * nvec + v0, n, stride):
+            seen[i] += 1
+    return (blocks, landed, seen, copy, 16 * bulk,
+            16 + phase + 4 * n_table)
+
+
+MODEL_TABLES = [(0, 512), (0, 32 ** 3), (0, 1001), (4, 32 ** 3), (8, 1001),
+                (12, 2), (0, random_access.GATHER_SMEM_MAX_BYTES // 4),
+                (12, random_access.GATHER_SMEM_MAX_BYTES // 4)]
+# (indices, 16-byte aligned): the probe's 65,536 (one vector a thread of
+# the full grid), several vectors a thread, a scalar tail, scalars only
+# (a misaligned view), fewer indices than one vector
+MODEL_INDICES = [(1 << 16, True), (200_003, True), (999, True),
+                 (1001, False), (3, True)]
+
+
+@pytest.mark.parametrize("n,vec", MODEL_INDICES,
+                         ids=[f"{n}{'-scalar' * (not v)}"
+                              for n, v in MODEL_INDICES])
+@pytest.mark.parametrize("phase,n_table", MODEL_TABLES,
+                         ids=[f"{n}@{p}" for p, n in MODEL_TABLES])
+def test_gather_model_covers_once(phase, n_table, n, vec):
+    """Every table float lands in every block's shared memory exactly once,
+    the bulk copy is 16-byte aligned at both ends and a multiple of 16
+    bytes, the barrier expects exactly its bytes, the shared memory fits,
+    and every index is gathered exactly once (16-byte vectors and a
+    scalar tail; all scalar where the indices are not 16-byte aligned)."""
+    blocks, landed, seen, copy, expect, smem = gather_model(
+        phase, n_table, n, vec)
+    assert 1 <= blocks <= GATHER_BLOCKS
+    assert (landed == 1).all()
+    assert (seen == 1).all()
+    if copy is None:
+        assert expect == 0
+    else:
+        src, dst, nbytes = copy
+        assert src % 16 == 0 and dst % 16 == 0 and nbytes % 16 == 0
+        assert nbytes == expect > 0
+    assert smem <= random_access.GATHER_SMEM_MAX_BYTES + 16 + 12
+    assert smem <= _SMEM_BYTES
+
+
+def test_gather_model_constants_match_the_kernel():
+    """The model's grid and staging split are the kernel's constants, the
+    probe's 65,536 indices fill the whole grid with one index vector a
+    thread, and the shared route's largest table leaves room for the
+    barrier's slot and the phase."""
+    src = open(os.path.join(ROOT, "segfusion_tpu_torch", "csrc",
+                            "probes.cu")).read()
+    for name, value in (("kGatherBlocks", GATHER_BLOCKS),
+                        ("kGatherThreads", GATHER_THREADS),
+                        ("kGatherThreadEighths", GATHER_THREAD_EIGHTHS),
+                        ("kMaxSmem", _SMEM_BYTES)):
+        assert f"constexpr int {name} = {value};" in src
+    assert gather_model(0, 512, 1 << 16)[0] == GATHER_BLOCKS
+    assert GATHER_BLOCKS * GATHER_THREADS * 4 == 1 << 16
+    assert gather_model(0, 512, 4 * GATHER_THREADS + 1)[0] == 2
+    assert random_access.GATHER_SMEM_MAX_BYTES == _SMEM_BYTES - 32
 
 
 @pytest.mark.parametrize("updates", ["ones", "normal"])
