@@ -25,8 +25,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    ``launch_floor_ms``), then the probe kernels
    (``segfusion_tpu_torch/probes``, ``csrc/probes.cu``, the ports of the
    Pallas probes of ``tools/``) against their plain versions at the tools'
-   own sizes, the shared-memory gather and the offset copy also at ragged
-   and misaligned inputs: bit-exact, or
+   own sizes, the shared-memory gather, the offset copy, the box sum and
+   the lane roll also at ragged, misaligned and clamped inputs and other
+   shifts (each label names the route the kernel takes): bit-exact, or
    within the stated tolerance (the scatter-add's atomics on random
    updates); kernel, plain and library-call times (under 0.1 ms: the
    median of 5 replays of 200 calls in a CUDA graph, with the replays'
@@ -591,12 +592,32 @@ def gather_cases(dev, g):
             lambda upd=upd.reshape(-1): acc.index_add_(0, flat, upd),
             8 * n + 4 * bins, n, tol))
     vol = torch.rand((256, 256, 256), generator=g, device=dev)
-    pos = torch.tensor([8, 16, 32], dtype=torch.int32, device=dev)
-    cases.append(Case("box_sum 64^3 box of a 256^3 volume", "box_sum",
-                      lambda: ra.box_sum(vol, pos, 64),
-                      lambda: ra.box_sum_plain(vol, pos, 64),
-                      lambda: vol[8:72, 16:80, 32:96].sum(0),
-                      4 * 64 ** 3 + 4 * 64 ** 2))
+    odd = torch.rand((96, 80, 70), generator=g, device=dev)
+    mis = torch.rand(96 * 80 * 72 + 1, generator=g, device=dev)[1:] \
+        .reshape(96, 80, 72)
+    # the probe's box; starts at an odd z and 65 short of the far z face
+    # (not 16-byte aligned: thread loads in the TMA kernel); SZ = 70, not a
+    # multiple of 4, and a volume seen 4 bytes past a 16-byte boundary
+    # (thread loads);
+    # boxes of 48 and 13; a start past the far x and z faces and the near
+    # y face (clamped)
+    for v, start, box in ((vol, (8, 16, 32), 64), (vol, (8, 16, 33), 64),
+                          (vol, (8, 16, 191), 64), (odd, (5, 7, 3), 64),
+                          (mis, (5, 7, 3), 64), (vol, (8, 16, 32), 48),
+                          (vol, (8, 16, 31), 13), (vol, (300, -7, 250), 64)):
+        pos = torch.tensor(start, dtype=torch.int32, device=dev)
+        x0, y0, z0 = (min(max(p, 0), n - box) for p, n in zip(start,
+                                                               v.shape))
+        probe = v is vol and start == (8, 16, 32) and box == 64
+        cases.append(Case(
+            f"box_sum {box}^3 box of a {'x'.join(map(str, v.shape))} volume"
+            f"{' (misaligned view)' * (v is mis)} at {start} "
+            f"[{ra.box_route(v, start, box)}]", "box_sum" if probe else None,
+            lambda v=v, pos=pos, box=box: ra.box_sum(v, pos, box),
+            lambda v=v, pos=pos, box=box: ra.box_sum_plain(v, pos, box),
+            lambda v=v, x0=x0, y0=y0, z0=z0, box=box:
+                v[x0:x0 + box, y0:y0 + box, z0:z0 + box].sum(0),
+            4 * box ** 3 + 4 * box ** 2))
     for S, dtype in ((32768, torch.float32), (8192, torch.int32)):
         t = (torch.randn((S, 128), generator=g, device=dev)
              if dtype == torch.float32 else randint(2 ** 31 - 1, S, 128))
@@ -686,10 +707,26 @@ def lane_cases(dev, g):
         (sd.roll1, x8, lambda: torch.roll(x8, 1, 1), 2 * n8),
     ]
     plain = c1.PLAIN | c2.PLAIN | {sd.roll1: sd.roll1_plain}
-    cases = [Case(f"{fn.__name__} {tuple(x.shape)}", fn.__name__,
-                  lambda fn=fn, x=x: fn(x), lambda fn=fn, x=x: plain[fn](x),
-                  lib, nbytes)
+    rolls = (c1.roll64, sd.roll1)
+    cases = [Case(f"{fn.__name__} {tuple(x.shape)}"
+                  + (f" [{c1.roll_route(x)}]" if fn in rolls else ""),
+                  fn.__name__, lambda fn=fn, x=x: fn(x),
+                  lambda fn=fn, x=x: plain[fn](x), lib, nbytes)
              for fn, x, lib, nbytes in table]
+    # the lane roll at shifts 3 and -5, and on the lane loop's inputs: 100
+    # lanes and a view 4 bytes past a 16-byte boundary
+    mis8 = torch.randn(8 * 128 + 1, generator=g, device=dev)[1:] \
+        .reshape(8, 128)
+    x100 = torch.randn((8, 100), generator=g, device=dev)
+    for x, shift in ((x8, 3), (x8, -5), (x100, 1), (x100, -5), (mis8, 1),
+                     (mis8, 3)):
+        cases.append(Case(
+            f"roll_lanes {tuple(x.shape)}{' (misaligned view)' * (x is mis8)}"
+            f" shift {shift} [{c1.roll_route(x)}]", None,
+            lambda x=x, shift=shift: c1.roll_lanes(x, shift),
+            lambda x=x, shift=shift: c1.roll_lanes_plain(x, shift),
+            lambda x=x, shift=shift: torch.roll(x, shift, 1),
+            2 * x.numel() * 4))
     # P10 on a misaligned view of x (scalar) and on 3-row blocks of
     # (64, 126) (a 16-byte head and tail in every block)
     mis = torch.randn(64 * 128 + 1, generator=g, device=dev)[1:] \
@@ -714,7 +751,8 @@ def probe_counts() -> dict:
 
 def check_probes(dev):
     """The launch floor, then every probe kernel against its plain version
-    at the tools' sizes (and P2/P3/P10 at ragged and misaligned inputs);
+    at the tools' sizes (and P2/P3/P5/P10/P12 at ragged, misaligned and
+    clamped inputs);
     returns the kernels-line results, then runs each probe's main once
     with the launch counts reset and returns those counts too.
 

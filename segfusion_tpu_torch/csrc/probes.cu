@@ -80,14 +80,28 @@
 //    loop's and not fixed: exact where every partial sum is exact (the
 //    probe's all-ones updates, counts below 2^24), within a stated
 //    tolerance on random updates.
-// P5 box_sum_kernel <- probe_random_access.py probe_box_dma (:194, body
-//    :200). out[y, z] = sum over x < B of vol[x0 + x, y0 + y, z0 + z], the
-//    start read from device memory and clamped into the volume as
-//    lax.dynamic_slice clamps. Bound: the B^3 box read once. Design: one
-//    thread per (y, z) column, summing over x in order, so neighbouring
-//    threads read neighbouring z. Hopper's counterpart of the TPU's box
-//    DMA is a 3-D TMA tile load into shared memory; that is the next step,
-//    not written here.
+// P5 box_sum_tma_kernel / box_sum_kernel <- probe_random_access.py
+//    probe_box_dma (:194, body :200). out[y, z] = sum over x < B of
+//    vol[x0 + x, y0 + y, z0 + z], the start read from device memory and
+//    clamped into the volume as lax.dynamic_slice clamps. Bound: the
+//    launch, then two dependent round trips (the start, then the box, which
+//    L2 holds between calls: 1 MiB at the probe's 64^3, 0.3 us at 3.35
+//    TB/s) and the 63 dependent adds of a column, whose order is the plain
+//    version's (x from 0) and so is not split. Design: a block is one warp
+//    over 32 neighbouring z of one y row, so the probe's 4,096 columns
+//    spread over 128 blocks; every thread loads the start first
+//    (read-only broadcast loads). At the probe's B = 64 (kBoxUnrolled),
+//    where the volume's rows are whole 16-byte units and the clamped
+//    start's z is 16-byte aligned, thread 0 issues the Hopper counterpart
+//    of the TPU's box DMA, one 3-D TMA tile load of the block's (64, 1,
+//    32) box into shared memory on an mbarrier, and each thread sums its
+//    column from there; at any other start, and on other volumes at B =
+//    64, each thread unrolls the 64 loads of its column in registers; any
+//    other B loops over x. Measured and dropped (PERF.md): the unrolled
+//    thread loads at every start (~0.06 us slower than the tile), a (64,
+//    1, 36) tile at a z rounded down to 16 bytes (two 128-byte lines a
+//    row: slower than the thread loads) and a block per y row (64
+//    blocks; ~0.25 us slower).
 // P6 gather_rows_sum_kernel <- tools/probe_dynamic_gather.py probe (:25,
 //    body :26). out[i, j] = sum over k < inner of
 //    table[(idx[i, j] + k) mod S, j], in order of k from 0, for f32 and for
@@ -97,10 +111,11 @@
 //    it is 16 MiB, far above shared memory, and L2 holds it).
 // P7 take_lanes_kernel <- probe_dynamic_gather.py probe_axis1 (:91, body
 //    :94). out[i, j] = table[i, idx[i, j] mod C]. One thread per element.
-// P8 f16_pack / lane_swap / roll_lanes / reshape_slices / qshift /
+// P8 f16_pack / lane_swap / roll128 / reshape_slices / qshift /
 //    iota_mask / f16_unpack <- tools/probe_pallas_caps.py tryk (:19),
 //    bodies :36-91: lane and row permutations and the f16 pack and unpack
-//    (round to nearest even, __float2half_rn, as XLA converts).
+//    (round to nearest even, __float2half_rn, as XLA converts). roll64 is
+//    P12's lane roll at shift 64.
 // P9 store16 / rolls_sum / narrow_pad / regroup <- tools/probe_pallas_caps2.py
 //    tryk (:18), bodies :34-66.
 // P10 offset_copy_kernel <- probe_pallas_caps2.py main (:30, call :82, body
@@ -123,15 +138,23 @@
 //    memory with the opt-in; a larger one to a device-memory scratch that
 //    the wrapper allocates, one slice per window. Bound: bytes, the union
 //    of the windows read once.
-// P12 roll_lanes (shift 1) <- tools/probe_shadow_debug.py roll_semantics
-//    (:17, call :23): out[:, l] = x[:, (l - 1) mod C], jnp.roll's
-//    direction, which compiled pltpu.roll has.
-//
+// P12 roll128_kernel / roll_lanes_kernel (shift 1) <-
+//    tools/probe_shadow_debug.py roll_semantics (:17, call :23):
+//    out[:, l] = x[:, (l - s) mod C], jnp.roll's direction, which compiled
+//    pltpu.roll has. Bound: the launch (4 KiB at the probe's (8, 128)), so
+//    only the instructions before the one load count. Design: for 128-lane
+//    rows at 16-byte-aligned addresses, one warp per row and one 16-byte
+//    vector a lane: each lane takes the vectors of two lanes by
+//    __shfl_sync and keeps elements by s mod 4 (the same in the whole
+//    warp), with no division; any other width or alignment loops over
+//    the lanes (one thread a lane, rows along the grid's y).
 // What bounds P8-P12 at the probes' sizes (4-64 KiB) is the launch itself;
 // they are there to hold the TPU bodies' semantics, not to be fast.
 // noop_kernel, an empty block, measures that launch floor on the card.
 
 #include <cooperative_groups.h>
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at
+                    // run time (box_tensor_map), so nothing links libcuda
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -192,7 +215,7 @@ __global__ void dma_only_kernel(const uint4* __restrict__ geo,
   out[t] = val;
 }
 
-// -- TMA bulk copies and mbarriers (P2, P3) ----------------------------------
+// -- TMA bulk copies and mbarriers (P2, P3, P5) ------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -426,21 +449,106 @@ scatter_add_kernel(const int* __restrict__ idx, const float* __restrict__ upd,
 
 // -- P5 -----------------------------------------------------------------------
 
-__global__ void box_sum_kernel(const float* __restrict__ vol, int SX, int SY,
-                               int SZ, const int* __restrict__ pos, int B,
-                               float* __restrict__ out) {
-  const long long t = tid();
-  if (t >= static_cast<long long>(B) * B) return;
-  const int y = static_cast<int>(t / B), z = static_cast<int>(t % B);
-  const int x0 = clampi(pos[0], 0, SX - B);
-  const int y0 = clampi(pos[1], 0, SY - B);
-  const int z0 = clampi(pos[2], 0, SZ - B);
-  const long long plane = static_cast<long long>(SY) * SZ;
-  const float* p = vol + static_cast<long long>(x0) * plane
-                   + static_cast<long long>(y0 + y) * SZ + z0 + z;
+// the box side of the TMA and unrolled forms (the probe's), and the
+// threads of a block: one warp, over 32 neighbouring z of one y row
+constexpr int kBoxUnrolled = 64;
+constexpr int kBoxThreads = 32;
+
+// one column's sum over x in order from 0, its kB loads unrolled and all
+// in flight before the first add
+template <int kB>
+__device__ __forceinline__ float column_sum(const float* p, size_t plane) {
+  float v[kB];
+#pragma unroll
+  for (int x = 0; x < kB; ++x) v[x] = __ldg(p + x * plane);
   float acc = 0.0f;
-  for (int x = 0; x < B; ++x) acc += p[x * plane];
-  out[t] = acc;
+#pragma unroll
+  for (int x = 0; x < kB; ++x) acc += v[x];
+  return acc;
+}
+
+// Block (bz, y) of the grid (ceil(B / kBoxThreads), B) sums the columns
+// (y, z), z in [bz kBoxThreads, bz kBoxThreads + kBoxThreads) and < B,
+// over x in order from 0: column_sum at B == kB > 0, a loop at any B for
+// kB == 0.
+template <int kB>
+__global__ void __launch_bounds__(kBoxThreads)
+box_sum_kernel(const float* __restrict__ vol, int SX, int SY, int SZ,
+               const int* __restrict__ pos, int B, float* __restrict__ out) {
+  // the start first: the one round trip every address waits on
+  const int px = __ldg(pos), py = __ldg(pos + 1), pz = __ldg(pos + 2);
+  const int b = kB > 0 ? kB : B;
+  const int y = blockIdx.y;
+  const int z = blockIdx.x * kBoxThreads + threadIdx.x;
+  if (z >= b) return;
+  const int x0 = clampi(px, 0, SX - b);
+  const int y0 = clampi(py, 0, SY - b);
+  const int z0 = clampi(pz, 0, SZ - b);
+  const size_t plane = static_cast<size_t>(SY) * SZ;
+  const float* p = vol + x0 * plane + static_cast<size_t>(y0 + y) * SZ
+                   + z0 + z;
+  float acc = 0.0f;
+  if constexpr (kB > 0) {
+    acc = column_sum<kB>(p, plane);
+  } else {
+#pragma unroll 8
+    for (int x = 0; x < b; ++x) acc += __ldg(p + x * plane);
+  }
+  out[y * b + z] = acc;
+}
+
+// global -> this block's shared memory: the box of ``map`` at (c0, c1, c2)
+// (innermost first), completing on `bar`
+__device__ __forceinline__ void tensor_load_3d(uint32_t dst,
+                                               const CUtensorMap* map, int c0,
+                                               int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// B == kBoxUnrolled, with ``map`` the volume as a (SZ, SY, SX) tensor
+// (SZ % 4 == 0, 16-byte aligned) and a (kBoxThreads, 1, kBoxUnrolled) box.
+// Block (bz, y) of the grid (2, B): where the clamped start's z is 16-byte
+// aligned, thread 0 loads the block's tile (x0, y0 + y, z0 + bz
+// kBoxThreads) into shared memory, one 128-byte row per x at the probe's
+// start, and each thread sums its column from there over x in order; at
+// any other z (a TMA copy there traps) every thread sums its column with
+// column_sum, the whole grid alike.
+__global__ void __launch_bounds__(kBoxThreads)
+box_sum_tma_kernel(const __grid_constant__ CUtensorMap map,
+                   const float* __restrict__ vol, int SX, int SY, int SZ,
+                   const int* __restrict__ pos, float* __restrict__ out) {
+  constexpr int kB = kBoxUnrolled;
+  __shared__ __align__(128) float tile[kB * kBoxThreads];
+  __shared__ __align__(8) uint64_t bar;
+  const int px = __ldg(pos), py = __ldg(pos + 1), pz = __ldg(pos + 2);
+  const int y = blockIdx.y;
+  const int zb = blockIdx.x * kBoxThreads;   // the block's first column
+  const int x0 = clampi(px, 0, SX - kB);
+  const int y0 = clampi(py, 0, SY - kB);
+  const int z0 = clampi(pz, 0, SZ - kB);
+  float acc = 0.0f;
+  if (z0 & 3) {
+    const size_t plane = static_cast<size_t>(SY) * SZ;
+    acc = column_sum<kB>(vol + x0 * plane + static_cast<size_t>(y0 + y) * SZ
+                             + z0 + zb + threadIdx.x, plane);
+  } else {
+    const uint32_t b = smem_addr(&bar);
+    if (threadIdx.x == 0) {
+      mbar_init(b);
+      mbar_expect_tx(b, sizeof(tile));
+      tensor_load_3d(smem_addr(tile), &map, z0 + zb, y0 + y, x0, b);
+    }
+    __syncthreads();   // the barrier's init
+    mbar_wait0(b);
+#pragma unroll
+    for (int x = 0; x < kB; ++x) acc += tile[x * kBoxThreads + threadIdx.x];
+  }
+  out[y * kB + zb + threadIdx.x] = acc;
 }
 
 // -- P6 / P7 ------------------------------------------------------------------
@@ -490,15 +598,51 @@ __global__ void lane_swap_kernel(const float* __restrict__ x,
   out[e] = x[row * C + (l + 64) % C];
 }
 
-// out[:, l] = x[:, (l - shift) mod C]
+// the warps of a block of the 128-lane roll: one 128-lane row each
+constexpr int kRollWarps = 8;
+
+__device__ __forceinline__ float4 shfl4(float4 v, int lane) {
+  return make_float4(__shfl_sync(0xffffffffu, v.x, lane),
+                     __shfl_sync(0xffffffffu, v.y, lane),
+                     __shfl_sync(0xffffffffu, v.z, lane),
+                     __shfl_sync(0xffffffffu, v.w, lane));
+}
+
+// out[:, l] = x[:, (l - s) mod 128] with s = 4 q + m in [0, 128): one warp
+// per row, one 16-byte vector a lane. Lane i writes out[:, 4i, 4i + 4):
+// the last m elements of the vector of lane (i - q - 1) mod 32 and the
+// first 4 - m of lane (i - q) mod 32's; m is the same in the whole warp.
+__global__ void __launch_bounds__(kRollWarps * 32)
+roll128_kernel(const float4* __restrict__ x, float4* __restrict__ out,
+               int rows, int q, int m) {
+  const int row = blockIdx.x * kRollWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;   // the whole warp
+  const int lane = threadIdx.x & 31;
+  const size_t i = static_cast<size_t>(row) * 32 + lane;
+  const float4 v = x[i];
+  const float4 hi = shfl4(v, (lane - q) & 31);
+  float4 r = hi;
+  if (m != 0) {
+    const float4 lo = shfl4(v, (lane - q - 1) & 31);
+    r = m == 1 ? make_float4(lo.w, hi.x, hi.y, hi.z)
+        : m == 2 ? make_float4(lo.z, lo.w, hi.x, hi.y)
+                 : make_float4(lo.y, lo.z, lo.w, hi.x);
+  }
+  out[i] = r;
+}
+
+// out[r, l] = x[r, (l - s) mod C] with s in [0, C), any C: one thread per
+// lane of the grid's x, rows in strides of the grid's y
 __global__ void roll_lanes_kernel(const float* __restrict__ x,
-                                  float* __restrict__ out, int C, int shift,
-                                  long long n) {
-  const long long e = tid();
-  if (e >= n) return;
-  const long long row = e / C;
-  const int l = static_cast<int>(e % C);
-  out[e] = x[row * C + floor_mod(static_cast<long long>(l) - shift, C)];
+                                  float* __restrict__ out, int rows, int C,
+                                  int s) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= C) return;
+  const int src = l >= s ? l - s : l - s + C;
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const size_t row = static_cast<size_t>(r) * C;
+    out[row + l] = x[row + src];
+  }
 }
 
 // x (4Q, 512) seen as (Q, 4, 512): w[q, c] = (v[q, 0, c] + v[q, 1, 128 + c])
@@ -761,14 +905,74 @@ extern "C" int sf_probe_scatter_add(const void* idx, const void* upd,
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// P5: vol (SX, SY, SZ) f32, pos (3,) int32 on the device, out (B, B).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// P5's tensor map: vol (SX, SY, SZ) f32 as a (SZ, SY, SX) tensor with a
+// (kBoxThreads, 1, kBoxUnrolled) box, encoded by libcuda's
+// cuTensorMapEncodeTiled (its address fetched once through the runtime)
+static cudaError_t box_tensor_map(CUtensorMap* map, const void* vol, int SX,
+                                  int SY, int SZ) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(SZ),
+                              static_cast<cuuint64_t>(SY),
+                              static_cast<cuuint64_t>(SX)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(SZ) * 4,
+                                 static_cast<cuuint64_t>(SY) * SZ * 4};
+  const cuuint32_t box[3] = {kBoxThreads, 1, kBoxUnrolled};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(vol), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// P5: vol (SX, SY, SZ) f32, pos (3,) int32 on the device, out (B, B). B ==
+// kBoxUnrolled takes the TMA tile where SZ % 4 == 0 and vol is 16-byte
+// aligned (the tensor map's stride and base), else the unrolled thread
+// loads; any other B the x loop.
 extern "C" int sf_probe_box_sum(const void* vol, int SX, int SY, int SZ,
                                 const void* pos, int B, void* out,
                                 void* stream) {
-  box_sum_kernel<<<blocks_for(static_cast<long long>(B) * B), kThreads, 0,
-                   STREAM>>>(static_cast<const float*>(vol), SX, SY, SZ,
-                             static_cast<const int*>(pos), B,
-                             static_cast<float*>(out));
+  const dim3 grid((B + kBoxThreads - 1) / kBoxThreads, B);
+  const float* v = static_cast<const float*>(vol);
+  const int* p = static_cast<const int*>(pos);
+  float* o = static_cast<float*>(out);
+  if (B == kBoxUnrolled && SZ % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(vol) % 16 == 0) {
+    CUtensorMap map;
+    const cudaError_t err = box_tensor_map(&map, vol, SX, SY, SZ);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    box_sum_tma_kernel<<<grid, kBoxThreads, 0, STREAM>>>(map, v, SX, SY, SZ,
+                                                         p, o);
+  } else if (B == kBoxUnrolled) {
+    box_sum_kernel<kBoxUnrolled><<<grid, kBoxThreads, 0, STREAM>>>(
+        v, SX, SY, SZ, p, B, o);
+  } else {
+    box_sum_kernel<0><<<grid, kBoxThreads, 0, STREAM>>>(v, SX, SY, SZ, p, B,
+                                                        o);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -811,11 +1015,34 @@ extern "C" int sf_probe_lane_swap(const void* x, void* out, int C,
                      C);
 }
 
+// P8 roll64, P12: x and out (n / C, C); C == 128 with x and out 16-byte
+// aligned takes the warp-shuffle kernel, anything else the lane loop.
 extern "C" int sf_probe_roll_lanes(const void* x, void* out, int C, int shift,
                                    long long n, void* stream) {
-  return launch_flat(roll_lanes_kernel, n, STREAM,
-                     static_cast<const float*>(x), static_cast<float*>(out),
-                     C, shift);
+  const long long rows = n / C;
+  if (rows == 0) return 0;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out))
+       & 15) == 0;
+  if (C == 128 && aligned) {
+    const int s = shift & 127;   // the floor mod, 128 a power of two
+    const int warps = rows < kRollWarps ? static_cast<int>(rows)
+                                        : kRollWarps;
+    roll128_kernel<<<static_cast<unsigned>((rows + kRollWarps - 1)
+                                           / kRollWarps),
+                     warps * 32, 0, STREAM>>>(
+        static_cast<const float4*>(x), static_cast<float4*>(out),
+        static_cast<int>(rows), s >> 2, s & 3);
+  } else {
+    const int s = ((shift % C) + C) % C;
+    const int threads = C < kThreads ? (C + 31) / 32 * 32 : kThreads;
+    const dim3 grid((C + threads - 1) / threads,
+                    static_cast<unsigned>(rows < 65535 ? rows : 65535));
+    roll_lanes_kernel<<<grid, threads, 0, STREAM>>>(
+        static_cast<const float*>(x), static_cast<float*>(out),
+        static_cast<int>(rows), C, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int sf_probe_reshape_slices(const void* x, void* out, long long n,

@@ -10,28 +10,33 @@ kernel of ``csrc/probes.cu`` here, with its plain version:
 |                | (b << 16) OR b as u32 (int32 bits here)               |
 | lane_swap      | k_slice64 :44, concat(x[:, 64:], x[:, :64])           |
 | roll64         | k_roll :51, pltpu.roll(x, 64, 1): x[:, (l - 64) % C]  |
+|                | (``roll_lanes`` at shift 64)                          |
 | reshape_slices | k_reshape :59, (32, 512) as (8, 4, 512): three        |
 |                | 128-lane slices summed, broadcast back                |
 | qshift         | k_padq :68, rows shifted down one group of 4          |
 | iota_mask      | k_iota_mask :76, the first group of 4 rows zeroed     |
 | f16_unpack     | k_unpack :84, the high 16 bits of each word as f16    |
 
-``main`` runs each on the tool's inputs, holds it against its plain
-version and prints its first values, as the tool did.
+``roll_lanes`` is the lane roll at any shift, the kernel that ``roll64``
+and ``shadow_debug.roll1`` launch; ``roll_route`` names the form it takes
+on the card. ``main`` runs each body on the tool's inputs, holds it
+against its plain version and prints its first values, as the tool did.
 
     python -m segfusion_tpu_torch.probes.pallas_caps [--device cpu]
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..device import resolve_device
 from . import _lib
 
-__all__ = ["f16_pack", "lane_swap", "roll64", "reshape_slices", "qshift",
-           "iota_mask", "f16_unpack", "PLAIN", "main", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["f16_pack", "lane_swap", "roll64", "roll_lanes", "roll_route",
+           "reshape_slices", "qshift", "iota_mask", "f16_unpack", "PLAIN",
+           "main", "launch_counts", "reset_launch_counts"]
 
 
 # -- plain versions -----------------------------------------------------------
@@ -48,6 +53,10 @@ def f16_pack_plain(x):
 
 def lane_swap_plain(x):
     return torch.cat([x[:, 64:], x[:, :64]], dim=1)
+
+
+def roll_lanes_plain(x, shift):
+    return torch.roll(x, shift, 1)
 
 
 def roll64_plain(x):
@@ -90,6 +99,24 @@ def lane_swap(x):
                             x, min_c=64)
 
 
+def roll_route(x: torch.Tensor) -> str:
+    """The form the lane roll of the (R, C) ``x`` takes on the card: a
+    warp-shuffle kernel for 128-lane rows at a 16-byte-aligned address
+    (the output always is), a loop over the lanes for anything else."""
+    return ("warp shuffle" if x.shape[-1] == 128 and x.data_ptr() % 16 == 0
+            else "lane loop")
+
+
+def roll_lanes(x, shift: int):
+    """out[:, l] = x[:, (l - shift) mod C] (jnp.roll's direction) for any
+    int32 ``shift``, negative too; in the form ``roll_route`` names."""
+    if not -2 ** 31 <= shift < 2 ** 31:
+        raise ValueError(f"roll_lanes: shift {shift} is not an int32")
+    return _lib.lane_kernel(roll_lanes,
+                            functools.partial(roll_lanes_plain, shift=shift),
+                            "sf_probe_roll_lanes", x, extra=(shift,))
+
+
 def roll64(x):
     return _lib.lane_kernel(roll64, roll64_plain, "sf_probe_roll_lanes", x,
                             extra=(64,))
@@ -117,7 +144,7 @@ def f16_unpack(x):
 
 
 _WRAPPERS = (f16_pack, lane_swap, roll64, reshape_slices, qshift, iota_mask,
-             f16_unpack)
+             f16_unpack, roll_lanes)
 PLAIN = {f16_pack: f16_pack_plain, lane_swap: lane_swap_plain,
          roll64: roll64_plain, reshape_slices: reshape_slices_plain,
          qshift: qshift_plain, iota_mask: iota_mask_plain,

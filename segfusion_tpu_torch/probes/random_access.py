@@ -12,7 +12,9 @@ Port of ``tools/probe_random_access.py``. Its Pallas kernels become:
 
 Shared memory takes the place of VMEM: ``gather_smem`` stages the table
 there with the TMA's bulk copy, and ``scatter_add`` accumulates in the
-distributed shared memory of one thread-block cluster. ``take`` gathers
+distributed shared memory of one thread-block cluster; ``box_sum`` reads
+its box with the TMA's 3-D tile load where it can (``box_route``).
+``take`` gathers
 from shared memory where the table fits (up to 227 KB less 32 B) and
 from device memory otherwise (``take_route``). The tool's parts that were
 no Pallas stay plain PyTorch timings: part 1 ``torch.take``, part 2
@@ -31,7 +33,8 @@ from ..device import resolve_device
 from . import _lib
 
 __all__ = ["gather_smem", "take", "scatter_add", "box_sum", "gather_plain",
-           "scatter_add_plain", "box_sum_plain", "take_route",
+           "scatter_add_plain", "box_sum_plain", "take_route", "box_route",
+           "BOX_UNROLLED",
            "GATHER_SMEM_MAX_BYTES",
            "scatter_add_max_bins", "SCATTER_CLUSTER", "main",
            "launch_counts", "reset_launch_counts"]
@@ -156,6 +159,26 @@ def scatter_add(idx: torch.Tensor, upd: torch.Tensor, n_out: int
                 idx, upd, idx.numel(), out, n_out)
     scatter_add.launches += 1
     return out
+
+
+# the box side box_sum's kernels are built for (kBoxUnrolled in
+# csrc/probes.cu): the probe's
+BOX_UNROLLED = 64
+
+
+def box_route(vol: torch.Tensor, start, box: int) -> str:
+    """The form ``box_sum``'s kernel takes on the card for ``vol`` and the
+    (host) ``start``: at the probe's box of 64, the TMA's 3-D tile load
+    where the volume's rows are whole 16-byte units at a 16-byte-aligned
+    address (the tensor map needs both) and the clamped start's z is
+    16-byte aligned (the copy needs it), else 64 thread loads a column
+    unrolled; a loop over x at any other size."""
+    if box != BOX_UNROLLED:
+        return "x loop"
+    z0 = min(max(int(start[2]), 0), vol.shape[-1] - box)
+    if vol.shape[-1] % 4 == 0 and vol.data_ptr() % 16 == 0 and z0 % 4 == 0:
+        return "tma tile"
+    return "unrolled"
 
 
 def box_sum(vol: torch.Tensor, pos: torch.Tensor, box: int) -> torch.Tensor:

@@ -3,12 +3,14 @@
 Port of ``tools/probe_shadow_debug.py``. ``roll1`` replaces the Pallas
 kernel of ``roll_semantics`` (``:17``, call ``:23``):
 ``out[:, l] = x[:, (l - 1) % C]``, the direction of ``jnp.roll``, which
-compiled ``pltpu.roll`` has. ``main`` prints which direction the card's
-kernel has, then holds the full shadow build (K2,
-``ops/kernels/shadow_build.build_shadow``) against its plain version on a
-(6, 8, 40) slot state with zero pad rows and z-tail, and prints where they
-differ, as the tool did. The state is laid out with the layout's own
-y-stride (SY = 12 at this shape; the tool's reshape assumed Y + 2).
+compiled ``pltpu.roll`` has; it is ``pallas_caps.roll_lanes`` at shift 1
+(a warp shuffle for 128-lane rows, ``pallas_caps.roll_route``). ``main``
+prints which direction the card's kernel has, then holds the full shadow
+build (K2, ``ops/kernels/shadow_build.build_shadow``) against its plain
+version on a (6, 8, 40) slot state with zero pad rows and z-tail, and
+prints where they differ, as the tool did. The state is laid out with the
+layout's own y-stride (SY = 12 at this shape; the tool's reshape assumed
+Y + 2).
 
     python -m segfusion_tpu_torch.probes.shadow_debug [--device cpu]
 """

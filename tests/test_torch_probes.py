@@ -388,6 +388,99 @@ def test_box_sum_clamps_the_start():
                                atol=1e-6)
 
 
+# box_sum's block and the box side of its TMA and unrolled forms
+# (kBoxThreads, kBoxUnrolled in csrc/probes.cu)
+BOX_THREADS, BOX_UNROLLED = 32, 64
+
+
+def box_model(vol, pos, B, aligned=True):
+    """numpy model of P5's kernels (csrc/probes.cu): the grid
+    (ceil(B / BOX_THREADS), B) of BOX_THREADS threads; block (bz, y),
+    thread t sums the column (y, z = bz BOX_THREADS + t), if z < B, over x
+    in order from 0 (one f32 rounding per add, as the kernels' adds),
+    from the start clamped into the volume. On the TMA route (B of 64,
+    SZ % 4 == 0, a 16-byte-aligned volume, a clamped z start that is a
+    multiple of 4) the block's thread 0 loads the (B x, 1 y, BOX_THREADS
+    z) tile at (x0, y0 + y, z0 + bz BOX_THREADS) and each thread reads its
+    column of the tile. Returns (out, how often each (y, z) is summed, the
+    route, the TMA tiles' z starts)."""
+    SZ = vol.shape[2]
+    x0, y0, z0 = (min(max(int(p), 0), s - B)
+                  for p, s in zip(pos, vol.shape))
+    route = ("x loop" if B != BOX_UNROLLED else
+             "tma tile" if SZ % 4 == 0 and aligned and z0 % 4 == 0
+             else "unrolled")
+    out = np.full((B, B), np.nan, np.float32)
+    covered = np.zeros((B, B), np.int64)
+    starts = []
+    for bz in range(-(-B // BOX_THREADS)):
+        z = bz * BOX_THREADS + np.arange(BOX_THREADS)
+        z = z[z < B]
+        for y in range(B):
+            if route == "tma tile":
+                zs = z0 + bz * BOX_THREADS
+                starts.append(zs)
+                tile = vol[x0:x0 + B, y0 + y, zs:zs + BOX_THREADS]
+                assert tile.shape == (B, BOX_THREADS)   # inside the volume
+                cols = tile[:, z - bz * BOX_THREADS]
+            else:
+                cols = vol[x0:x0 + B, y0 + y, z0 + z]
+            acc = np.zeros(len(z), np.float32)
+            for x in range(B):
+                acc = acc + cols[x]
+            out[y, z] = acc
+            covered[y, z] += 1
+    return out, covered, route, starts
+
+
+# (shape, start): starts at z 3 and 2 (a TMA copy there traps: thread
+# loads) and 0, inside and past each face, of volumes whose SZ is (68) and
+# is not (67) a multiple of 4
+BOX_STARTS = [(shape, start) for shape in ((70, 66, 68), (70, 66, 67))
+              for start in ((2, 1, 3), (99, 0, 0), (-5, 0, 0), (0, 80, 0),
+                            (0, -1, 0), (0, 0, 70), (0, 0, -9), (0, 0, 2))]
+
+
+@pytest.mark.parametrize("B", [1, 4, 64])
+@pytest.mark.parametrize("shape,start", BOX_STARTS,
+                         ids=[f"{s[0]}x{s[1]}x{s[2]}@{p}"
+                              for s, p in BOX_STARTS])
+def test_box_model_covers_once_in_x_order(shape, start, B):
+    """Every (y, z) of the box is summed exactly once, in x order from the
+    clamped start: the model equals the plain version bit for bit (on
+    uniform data, where another order of the adds would differ); every
+    TMA tile starts at a 16-byte-aligned z inside the volume."""
+    vol = np.random.RandomState(B).rand(*shape).astype(np.float32)
+    pos = np.array(start, np.int32)
+    out, covered, route, starts = box_model(vol, pos, B)
+    assert (covered == 1).all()
+    assert route == random_access.box_route(_t(vol), start, B)
+    assert all(zs % 4 == 0 and zs + BOX_THREADS <= shape[2]
+               for zs in starts)
+    assert len(starts) == (2 * 64 if route == "tma tile" else 0)
+    np.testing.assert_array_equal(
+        out, random_access.box_sum(_t(vol), _t(pos), B).numpy())
+
+
+def test_box_route_needs_an_aligned_volume():
+    """A volume seen 4 bytes past a 16-byte boundary takes the unrolled
+    thread loads at B = 64 (the tensor map needs an aligned base), with
+    the same result as the TMA route's model."""
+    flat = np.random.RandomState(7).rand(70 * 66 * 68 + 1).astype(np.float32)
+    view = torch.as_tensor(flat)[1:].reshape(70, 66, 68)
+    vol = flat[1:].reshape(70, 66, 68)
+    pos = np.array([3, 2, 4], np.int32)
+    assert random_access.box_route(view, pos, 64) == "unrolled"
+    assert random_access.box_route(_t(vol.copy()), pos, 64) == "tma tile"
+    assert random_access.box_route(view, pos, 13) == "x loop"
+    unaligned, covered, route, _ = box_model(vol, pos, 64, aligned=False)
+    tma, _, _, _ = box_model(vol, pos, 64)
+    assert route == "unrolled" and (covered == 1).all()
+    np.testing.assert_array_equal(unaligned, tma)
+    np.testing.assert_array_equal(
+        unaligned, random_access.box_sum(view, _t(pos), 64).numpy())
+
+
 # -- P6 / P7 ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("S", [8, 64])
@@ -503,6 +596,114 @@ def test_roll_direction_matches_jax():
     got = shadow_debug.roll1(_t(x))
     np.testing.assert_array_equal(got.numpy(), want)
     assert got[0, 0] == 127
+
+
+# roll128_kernel's block (kRollWarps in csrc/probes.cu;
+# test_roll_and_box_models_constants_match_the_kernel holds it to the source)
+ROLL_WARPS = 8
+
+
+def roll_model(x, shift):
+    """numpy model of roll128_kernel (csrc/probes.cu), the lane roll of
+    (R, 128) rows: ceil(R / ROLL_WARPS) blocks of min(R, ROLL_WARPS) warps,
+    one warp per row, lane i holding the row's 16-byte vector i. With
+    s = shift mod 128 = 4 q + m, lane i takes the vectors of lanes
+    (i - q) mod 32 and (i - q - 1) mod 32 (``__shfl_sync``, every lane of
+    the warp active) and keeps the last m elements of the second and the
+    first 4 - m of the first. Returns (out, how often each element of out
+    is written)."""
+    R, C = x.shape
+    assert C == 128
+    s = shift & 127
+    q, m = s >> 2, s & 3
+    threads = min(R, ROLL_WARPS) * 32
+    blocks = -(-R // ROLL_WARPS)
+    vec = x.reshape(R, 32, 4)
+    out = np.full((R, 32, 4), np.nan, np.float32)
+    writes = np.zeros((R, 32, 4), np.int64)
+    lanes = np.arange(32)
+    for b in range(blocks):
+        for w in range(threads // 32):
+            row = b * ROLL_WARPS + w
+            if row >= R:    # the whole warp leaves
+                continue
+            hi = vec[row, (lanes - q) & 31]
+            r = hi
+            if m:
+                lo = vec[row, (lanes - q - 1) & 31]
+                r = np.concatenate([lo[:, 4 - m:], hi[:, :4 - m]], axis=1)
+            out[row] = r
+            writes[row] += 1
+    return out.reshape(R, C), writes.reshape(R, C)
+
+
+@pytest.mark.parametrize("rows", [8, 3, 19])
+def test_roll_model_is_jnp_roll_at_every_shift(rows):
+    """Every shift 0-127 and past 127 (s mod 4 picking the elements, the
+    two source lanes the vectors): np.roll's result, every output element
+    written once, including the rows of a last, partial block."""
+    x = np.random.RandomState(rows).randn(rows, 128).astype(np.float32)
+    for shift in list(range(128)) + [128, 129, 200, 255, 256, 1000003]:
+        out, writes = roll_model(x, shift)
+        np.testing.assert_array_equal(out, np.roll(x, shift, 1),
+                                      err_msg=f"shift {shift}")
+        assert (writes == 1).all()
+
+
+@pytest.mark.parametrize("shift", [-1, -3, -4, -5, -64, -127, -128, -129,
+                                   -(2 ** 31)])
+def test_roll_model_negative_shifts(shift):
+    """Negative shifts: the launcher's ``shift & 127`` is the floor mod."""
+    x = np.random.RandomState(1).randn(8, 128).astype(np.float32)
+    out, writes = roll_model(x, shift)
+    np.testing.assert_array_equal(out, np.roll(x, shift, 1))
+    assert (writes == 1).all()
+
+
+@pytest.mark.parametrize("shape,shift", [((8, 128), 3), ((8, 128), -5),
+                                         ((8, 100), 1), ((3, 100), -5),
+                                         ((2, 300), 299)])
+def test_roll_lanes_matches_jnp_roll(shape, shift):
+    """The roll at any shift and width (the plain version on the CPU)
+    against jnp.roll, and the route the card takes: the shuffle only for
+    16-byte-aligned 128-lane rows."""
+    x = np.random.RandomState(2).randn(*shape).astype(np.float32)
+    got = pallas_caps.roll_lanes(_t(x), shift)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jnp.roll(x, shift, 1)))
+    flat = torch.as_tensor(np.random.RandomState(3).randn(
+        shape[0] * shape[1] + 1).astype(np.float32))
+    mis = flat[1:].reshape(shape)
+    assert pallas_caps.roll_route(mis) == "lane loop"
+    want = "warp shuffle" if shape[1] == 128 else "lane loop"
+    assert pallas_caps.roll_route(_t(x)) == want
+    np.testing.assert_array_equal(pallas_caps.roll_lanes(mis, shift).numpy(),
+                                  np.roll(mis.numpy(), shift, 1))
+    with pytest.raises(ValueError, match="not an int32"):
+        pallas_caps.roll_lanes(_t(x), 2 ** 31)
+
+
+def test_roll_and_box_models_constants_match_the_kernel():
+    """The models' block shapes are the kernels' constants, the launcher
+    takes the shuffle only for 16-byte-aligned 128-lane rows and reduces
+    the shift with ``& 127``, the box's TMA and unrolled side is the
+    probe's 64, and the TMA tile's box and expected bytes and the start
+    that takes thread loads are the model's."""
+    src = open(os.path.join(ROOT, "segfusion_tpu_torch", "csrc",
+                            "probes.cu")).read()
+    for name, value in (("kRollWarps", ROLL_WARPS),
+                        ("kBoxThreads", BOX_THREADS),
+                        ("kBoxUnrolled", BOX_UNROLLED)):
+        assert f"constexpr int {name} = {value};" in src
+    assert "const cuuint32_t box[3] = {kBoxThreads, 1, kBoxUnrolled};" in src
+    assert "float tile[kB * kBoxThreads];" in src
+    assert "mbar_expect_tx(b, sizeof(tile));" in src
+    assert "if (z0 & 3) {" in src
+    assert "if (C == 128 && aligned) {" in src
+    assert "const int s = shift & 127;" in src
+    assert ("if (B == kBoxUnrolled && SZ % 4 == 0 &&\n"
+            "      reinterpret_cast<uintptr_t>(vol) % 16 == 0) {") in src
+    assert random_access.BOX_UNROLLED == BOX_UNROLLED
 
 
 # -- P11 --------------------------------------------------------------------------
