@@ -27,11 +27,14 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    Pallas probes of ``tools/``) against their plain versions at the tools'
    own sizes, the shared-memory gather, the offset copy, the box sum and
    the lane roll also at ragged, misaligned and clamped inputs and other
-   shifts (each label names the route the kernel takes): bit-exact, or
-   within the stated tolerance (the scatter-add's atomics on random
-   updates); kernel, plain and library-call times (under 0.1 ms: the
-   median of 5 replays of 200 calls in a CUDA graph, with the replays'
-   spread), the traffic bound and the probe's rate; then each probe
+   shifts, the gather-sum at other table sizes and term counts on indices
+   of any int32, and the window copy at windows past every face (each
+   label names the route the kernel takes): bit-exact, or within the
+   stated tolerance (the scatter-add's atomics on random updates); the
+   gather-sum's library call (``embedding_bag``) with its error against
+   the plain version; kernel, plain and library-call times (under 0.1 ms:
+   the median of 5 replays of 200 calls in a CUDA graph, with the
+   replays' spread), the traffic bound and the probe's rate; then each probe
    module's ``main`` once, as ``python -m
    segfusion_tpu_torch.probes.<name>`` runs it;
 4. the headline configuration through ``Pipeline.fuse_sequence_rows``:
@@ -480,6 +483,9 @@ class Case(NamedTuple):
     nbytes: float
     elems: Optional[int] = None      # for a ns/elem rate
     tol: float = 0.0                 # 0: bit-exact
+    # the library call's result has the kernel's shape: print its error
+    # against the plain version beside its time
+    check_library: bool = False
 
 
 # calls under 0.1 ms: REPLAY_ITERS calls in one CUDA graph, replayed
@@ -618,20 +624,61 @@ def gather_cases(dev, g):
             lambda v=v, x0=x0, y0=y0, z0=z0, box=box:
                 v[x0:x0 + box, y0:y0 + box, z0:z0 + box].sum(0),
             4 * box ** 3 + 4 * box ** 2))
+    lanes = torch.arange(128, device=dev)
+
+    def rows_sum_bytes(ix, S, inner):
+        terms = torch.arange(inner, device=dev)[:, None, None]
+        reads = touched((ix.long()[None] + terms) % S * 128 + lanes,
+                        S * 128)
+        return 4 * reads + 8 * ix.numel()
+
     for S, dtype in ((32768, torch.float32), (8192, torch.int32)):
         t = (torch.randn((S, 128), generator=g, device=dev)
              if dtype == torch.float32 else randint(2 ** 31 - 1, S, 128))
         ix = randint(S, S, 128)
-        k = torch.arange(8, device=dev)[:, None, None]
-        lanes = torch.arange(128, device=dev)
-        reads = touched((ix.long()[None] + k) % S * 128 + lanes, S * 128)
-        # no single PyTorch call sums eight gathers: library_ms is null
+        library = None
+        if dtype == torch.float32:
+            # embedding_bag sums the same eight entries a bag, the table
+            # seen as S * 128 rows of one float; its (S * 128, 8) index is
+            # built outside the timed call
+            terms = torch.arange(8, device=dev)
+            bags = (((ix.long()[..., None] + terms) % S) * 128
+                    + lanes[:, None]).reshape(-1, 8).int()
+            library = (lambda t=t, bags=bags, S=S:
+                       torch.nn.functional.embedding_bag(
+                           bags, t.view(-1, 1), mode="sum").view(S, 128))
         cases.append(Case(
             f"gather_rows_sum S={S} {'f32' if S == 32768 else 'u32'}, 8 "
-            "terms", "gather_rows_sum" if S == 32768 else None,
+            f"terms [{dg.rows_sum_route(8)}]",
+            "gather_rows_sum" if S == 32768 else None,
             lambda t=t, ix=ix: dg.gather_rows_sum(t, ix),
-            lambda t=t, ix=ix: dg.gather_rows_sum_plain(t, ix), None,
-            4 * reads + 8 * S * 128, S * 128 * 8))
+            lambda t=t, ix=ix: dg.gather_rows_sum_plain(t, ix), library,
+            rows_sum_bytes(ix, S, 8), S * 128 * 8,
+            check_library=library is not None))
+    # 777 rows of indices from -3 S to 3 S with the int32 extremes among
+    # them, at 1, 8 and 9 terms (9 > S at S = 8); an index view 4 bytes past
+    # a 16-byte boundary; a u32 table
+    for S, inner, mis, dtype in [(S, inner, 0, torch.float32)
+                                 for S in (8, 513, 32768)
+                                 for inner in (1, 8, 9)] + [
+            (32768, 8, 1, torch.float32), (513, 9, 1, torch.int32)]:
+        t = (torch.randn((S, 128), generator=g, device=dev)
+             if dtype == torch.float32 else randint(2 ** 31 - 1, S, 128))
+        raw = torch.randint(-3 * S, 3 * S, (777 * 128 + mis,), generator=g,
+                            device=dev, dtype=torch.int32)
+        raw[::97] = -2 ** 31
+        raw[1::89] = 2 ** 31 - 1
+        ix = raw[mis:].view(777, 128)
+        cases.append(Case(
+            f"gather_rows_sum S={S} "
+            f"{'f32' if dtype == torch.float32 else 'u32'}, {inner} terms, "
+            "777 rows of any int32"
+            f"{' (misaligned view)' * mis} [{dg.rows_sum_route(inner)}]",
+            None, lambda t=t, ix=ix, inner=inner: dg.gather_rows_sum(
+                t, ix, inner),
+            lambda t=t, ix=ix, inner=inner: dg.gather_rows_sum_plain(
+                t, ix, inner), None,
+            rows_sum_bytes(ix, S, inner), ix.numel() * inner))
     t = torch.rand((128, 128), generator=g, device=dev)
     ix = randint(128, 128, 128)
     rows = torch.arange(128, device=dev)[:, None] * 128
@@ -655,7 +702,26 @@ def copy_cases(dev, g):
                   lambda: sv.dma_only(geo, L),
                   lambda: sv.dma_only_plain(geo, L),
                   lambda: out.copy_(strided), sv.dma_only_bytes(L))]
-    for label, (fn, args, _, window) in c3.inputs(dev).items():
+    inputs = c3.inputs(dev)
+    x3, x2, x4 = (v[1][0] for v in list(inputs.values())[:3])
+
+    def offsets(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    # the probe's four cases, then windows past every face (clamped): a
+    # (57, 7) window (57 a-rows, 399 rows, split 8 ways unevenly), 405
+    # contiguous rows, and the large windows
+    copies = [(label, fn, args) for label, (fn, args, _, _) in inputs.items()]
+    copies += [
+        ("strided (57, 7, 128) windows past every face", c3.window_copy,
+         (x3, offsets(-5, -3, 4000, 30, 3543, 21, 100, 2 ** 31 - 1), 57, 7)),
+        ("contiguous 405 rows past both ends", c3.flat_copy,
+         (x2, offsets(-7, 0, 10 ** 6, 0, 100395, 0, 5, 0), 405)),
+        ("strided (4, 1624, 128) windows past every face", c3.window_copy,
+         (x4, offsets(-1, -5, 9, 20000, 4, 10976, 2, 7), 4, 1624)),
+        ("contiguous 6496 rows past both ends", c3.flat_copy,
+         (x2, offsets(-3, 0, 10 ** 7, 0, 94304, 0, 11, 0), 6496))]
+    for label, fn, args in copies:
         src, offs, wa = args[:3]
         wb = args[3] if fn is c3.window_copy else 1
         src3 = src if src.dim() == 3 else src[:, None]
@@ -663,7 +729,7 @@ def copy_cases(dev, g):
         out_rows = wb if fn is c3.window_copy else wa
         plain = (c3.window_copy_plain if fn is c3.window_copy
                  else c3.flat_copy_plain)
-        # library: one index_select copying the same 64 windows
+        # library: one index_select copying the same windows
         cases.append(Case(
             f"{fn.__name__}: {label} [{c3.copy_route(wa, wb)}]",
             fn.__name__ if wa * wb == 406 else None,
@@ -751,8 +817,8 @@ def probe_counts() -> dict:
 
 def check_probes(dev):
     """The launch floor, then every probe kernel against its plain version
-    at the tools' sizes (and P2/P3/P5/P10/P12 at ragged, misaligned and
-    clamped inputs);
+    at the tools' sizes (and P2/P3/P5/P6/P10/P11/P12 at ragged,
+    misaligned and clamped inputs);
     returns the kernels-line results, then runs each probe's main once
     with the launch counts reset and returns those counts too.
 
@@ -787,6 +853,10 @@ def check_probes(dev):
         rate = (f"{k_ms * 1e6 / case.elems:.4f} ns/elem" if case.elems
                 else f"{case.nbytes / k_ms / 1e6:.1f} GB/s")
         lib = "n/a" if l_ms is None else spread_text(l_ms, l_spread)
+        lib_err = None
+        if case.check_library:
+            lib_err = max_abs(case.library(), case.plain())
+            lib += f" (library_max_abs_err {lib_err})"
         log(f"  {case.label}: {'exact' if case.tol == 0 else 'tol'}="
             f"{ok} max_abs_err={err} kernel_ms {spread_text(k_ms, k_spread)}"
             f" (eager_ms {e_ms:.4f}) plain_ms {p_ms:.4f} library_ms {lib} "
@@ -800,6 +870,8 @@ def check_probes(dev):
                                   "bound_by": "bytes", "library_ms": l_ms,
                                   "ms_spread": k_spread,
                                   "library_ms_spread": l_spread}
+            if lib_err is not None:
+                results[case.name]["library_max_abs_err"] = lib_err
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for m in PROBES:

@@ -102,13 +102,29 @@
 //    1, 36) tile at a z rounded down to 16 bytes (two 128-byte lines a
 //    row: slower than the thread loads) and a block per y row (64
 //    blocks; ~0.25 us slower).
-// P6 gather_rows_sum_kernel <- tools/probe_dynamic_gather.py probe (:25,
-//    body :26). out[i, j] = sum over k < inner of
-//    table[(idx[i, j] + k) mod S, j], in order of k from 0, for f32 and for
-//    u32 (a wrapping add). Bound: the indices read, the output written and
-//    the table entries touched read once. Design: one thread per output
-//    element; the table stays in device memory at every S (at S = 32,768
-//    it is 16 MiB, far above shared memory, and L2 holds it).
+// P6 lane_major_kernel + gather_rows_sum_kernel <-
+//    tools/probe_dynamic_gather.py probe (:25, body :26). out[i, j] = sum
+//    over k < inner of table[(idx[i, j] + k) mod S, j], in order of k from
+//    0, for f32 and for u32 (a wrapping add). Bound: the indices read, the
+//    output written and the table entries touched read once (15 us at S =
+//    32,768). What held the first design (one thread per output reading
+//    table[(b + k) mod S, j] down a column) was sectors, not bytes: its
+//    8 loads lie 512 bytes apart, each its own 32-byte L2 sector, 1.07 GB
+//    of L2 traffic for a 16 MiB table (0.25 ms on the H100). Design: two
+//    launches. The first writes the table lane-major into a scratch the
+//    wrapper allocates, (C, S + inner - 1 rounded up to 4), each lane's
+//    row ending with its first inner - 1 entries again so no window wraps
+//    (kLaneTile-square tiles through shared memory, coalesced both ways).
+//    The second takes one output a thread, lanes along the grid's x and
+//    rows along its y (no division; one 32-bit floor mod of the index),
+//    and reads the output's inner entries, now side by side in one or two
+//    sectors: at the probe's 8 terms (kRowsSumVector) as the 2 or 3
+//    aligned 16-byte vectors over them, else one at a time. Measured on
+//    the H100 (PERF.md): about a third of the first design's time, the
+//    transpose the smaller share; the loop at 8 terms about as fast as
+//    the vectors (sectors, not instructions, pace it). Not built: a
+//    shared-memory route for tables of at most 454 rows of 128 lanes
+//    (none of the probe's sizes but 8 and 64).
 // P7 take_lanes_kernel <- probe_dynamic_gather.py probe_axis1 (:91, body
 //    :94). out[i, j] = table[i, idx[i, j] mod C]. One thread per element.
 // P8 f16_pack / lane_swap / roll128 / reshape_slices / qshift /
@@ -129,15 +145,26 @@
 //    slower; PERF.md).
 // P11 window_copy_kernel <- tools/probe_pallas_caps3.py main (:51; bodies
 //    _win_kernel :27 and _flat_kernel :40): n windows of (WA, WB, 128) f32
-//    at dynamic offsets (the contiguous form is WB = 1), each copied into a
-//    scratch; the output is the first out_rows 128-lane rows of the last
-//    window's copy. The TPU ran the copies one after another on one core;
-//    here one block copies each window, all in parallel, with 16-byte
-//    loads, and only the last window's block writes the output. A window
-//    that fits (the (58, 7, 128) f32 window is 207,872 B) goes to shared
-//    memory with the opt-in; a larger one to a device-memory scratch that
-//    the wrapper allocates, one slice per window. Bound: bytes, the union
-//    of the windows read once.
+//    at dynamic offsets (the contiguous form is WB = 1), each copied
+//    on chip; the output is the first out_rows 128-lane rows of the last
+//    window's copy. Bound: bytes, the union of the windows read once and
+//    the output written (3.4 us at the probe's (58, 7, 128)). The TPU ran
+//    one DMA per window, one after another; the first design here copied
+//    each window by one block of 1,024 threads, one 16-byte load in flight
+//    a thread and 64-bit index math, and windows larger than shared memory
+//    through a device-memory scratch. Design: the TMA. Each window splits
+//    into blocks of at most kWindowPartRows rows (8 at the probe's 406),
+//    so the copies spread over the card; lane 0 of each block reads the
+//    window's offsets (the one round trip), clamps them and arms an
+//    mbarrier with the part's bytes, and the lanes of warp 0 issue one
+//    bulk copy (cp.async.bulk) per run of rows contiguous in src: the
+//    whole part where WB == B, else its share of each a. Larger windows
+//    take more blocks the same way, so nothing goes through device memory.
+//    Only the last window's blocks write the output, 16 bytes a thread.
+//    Measured on the H100 (PERF.md): one, two, four, eight and sixteen
+//    blocks a probe window; eight is within 0.15 us of the best for both
+//    forms, the flat one paced also by its 208 KB output leaving the SMs
+//    of the last window's blocks.
 // P12 roll128_kernel / roll_lanes_kernel (shift 1) <-
 //    tools/probe_shadow_debug.py roll_semantics (:17, call :23):
 //    out[:, l] = x[:, (l - s) mod C], jnp.roll's direction, which compiled
@@ -148,8 +175,8 @@
 //    __shfl_sync and keeps elements by s mod 4 (the same in the whole
 //    warp), with no division; any other width or alignment loops over
 //    the lanes (one thread a lane, rows along the grid's y).
-// What bounds P8-P12 at the probes' sizes (4-64 KiB) is the launch itself;
-// they are there to hold the TPU bodies' semantics, not to be fast.
+// What bounds P8-P10 and P12 at the probes' sizes (4-64 KiB) is the launch
+// itself; they are there to hold the TPU bodies' semantics, not to be fast.
 // noop_kernel, an empty block, measures that launch floor on the card.
 
 #include <cooperative_groups.h>
@@ -553,19 +580,86 @@ box_sum_tma_kernel(const __grid_constant__ CUtensorMap map,
 
 // -- P6 / P7 ------------------------------------------------------------------
 
+// the term count the gather-sum reads as 16-byte vectors (the probe's; any
+// other loops), and the block of both P6 kernels: kLaneTile lanes by
+// kTileRows rows (the transpose's tiles are kLaneTile square)
+constexpr int kRowsSumVector = 8;
+constexpr int kLaneTile = 32;
+constexpr int kTileRows = 8;
+
+// The lane-major copy: lm[j, s] = table[s mod S, j] for s < S + inner - 1
+// (each lane's row ends with its first inner - 1 entries again, so no
+// window of inner entries wraps), 0 up to the row's padded length P. A
+// block transposes a kLaneTile-square tile through shared memory (one
+// column of padding against bank conflicts), reading table rows and
+// writing lm rows 128 bytes a warp.
 template <typename T>
-__global__ void gather_rows_sum_kernel(const T* __restrict__ table,
-                                       const int* __restrict__ idx,
-                                       T* __restrict__ out, int S, int C,
-                                       int inner, long long n) {
-  const long long e = tid();
-  if (e >= n) return;
-  const int j = static_cast<int>(e % C);
-  const long long base = idx[e];
-  T acc = 0;
-  for (int k = 0; k < inner; ++k)
-    acc = acc + table[static_cast<long long>(floor_mod(base + k, S)) * C + j];
-  out[e] = acc;
+__global__ void __launch_bounds__(kLaneTile * kTileRows)
+lane_major_kernel(const T* __restrict__ table, T* __restrict__ lm, int S,
+                  int C, int P, int n_valid) {
+  __shared__ T tile[kLaneTile][kLaneTile + 1];
+  const int s0 = blockIdx.x * kLaneTile, j0 = blockIdx.y * kLaneTile;
+  const int tx = threadIdx.x;
+  for (int r = threadIdx.y; r < kLaneTile; r += kTileRows) {
+    const int s = s0 + r, j = j0 + tx;
+    T v = 0;
+    if (s < n_valid && j < C)
+      v = table[static_cast<size_t>(s < S ? s : s % S) * C + j];
+    tile[r][tx] = v;
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < kLaneTile; r += kTileRows) {
+    const int j = j0 + r, s = s0 + tx;
+    if (j < C && s < P) lm[static_cast<size_t>(j) * P + s] = tile[tx][r];
+  }
+}
+
+// acc + the entry whose bits are b: an f32 add, or a wrapping u32 add
+__device__ __forceinline__ float add_bits(float acc, uint32_t b) {
+  return acc + __uint_as_float(b);
+}
+__device__ __forceinline__ uint32_t add_bits(uint32_t acc, uint32_t b) {
+  return acc + b;
+}
+
+// out[i, j] = sum over k < inner of lm[j, r + k], r = idx[i, j] mod S (one
+// 32-bit floor mod), added in order of k from 0. Thread (x, y) of block
+// (bx, by) takes lane j = bx kLaneTile + x and rows i = by kTileRows + y
+// in strides of the grid, so idx is read and out written 128 bytes a warp
+// with no division. kInner == kRowsSumVector reads the window's entries
+// from the 2 or 3 aligned 16-byte vectors over [r, r + 8) (inside the
+// row: P is S + 7 rounded up to 4) and picks them by r mod 4; any other
+// inner (kInner 0) loops over k.
+template <typename T, int kInner>
+__global__ void __launch_bounds__(kLaneTile * kTileRows)
+gather_rows_sum_kernel(const T* __restrict__ lm, int P,
+                       const int* __restrict__ idx, T* __restrict__ out,
+                       int S, int C, int R, int inner) {
+  const int j = blockIdx.x * kLaneTile + threadIdx.x;
+  if (j >= C) return;
+  const T* row = lm + static_cast<size_t>(j) * P;
+  for (int i = blockIdx.y * kTileRows + threadIdx.y; i < R;
+       i += gridDim.y * kTileRows) {
+    const size_t e = static_cast<size_t>(i) * C + j;
+    int r = __ldg(idx + e) % S;
+    if (r < 0) r += S;
+    T acc = 0;
+    if constexpr (kInner == kRowsSumVector) {
+      const int m = r & 3;
+      const uint4* v = reinterpret_cast<const uint4*>(row + r - m);
+      const uint4 a = __ldg(v), b = __ldg(v + 1);
+      const uint4 c = m ? __ldg(v + 2) : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t w[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                              b.z, b.w, c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int k = 0; k < kRowsSumVector; ++k)
+        acc = add_bits(acc, m == 0 ? w[k] : m == 1 ? w[k + 1]
+                            : m == 2 ? w[k + 2] : w[k + 3]);
+    } else {
+      for (int k = 0; k < inner; ++k) acc = acc + __ldg(row + r + k);
+    }
+    out[e] = acc;
+  }
 }
 
 __global__ void take_lanes_kernel(const float* __restrict__ table,
@@ -787,35 +881,92 @@ __global__ void noop_kernel() {}
 
 // -- P11 ----------------------------------------------------------------------
 
-// One block per window: window k of (WA, WB) 128-lane rows of src, viewed
-// as (A, B, 128), at (offs[2k], offs[2k+1]) clamped into src, copied to
-// shared memory (scratch == nullptr) or to scratch slice k; the last
-// window's block writes the first out_vecs 16-byte vectors of its copy.
-__global__ void window_copy_kernel(const float4* __restrict__ src, int A,
-                                   int B, const int* __restrict__ offs,
-                                   int WA, int WB, float4* scratch,
-                                   float4* __restrict__ out, int out_vecs) {
-  extern __shared__ __align__(16) float4 window[];
-  const int k = blockIdx.x;
-  const int oa = clampi(offs[2 * k], 0, A - WA);
-  const int ob = clampi(offs[2 * k + 1], 0, B - WB);
-  const long long n_vec = static_cast<long long>(WA) * WB * 32;
-  float4* dst = scratch == nullptr ? window : scratch + k * n_vec;
-  for (long long i = threadIdx.x; i < n_vec; i += blockDim.x) {
-    const int v = static_cast<int>(i & 31);
-    const long long ab = i >> 5;
-    const int b = static_cast<int>(ab % WB);
-    const long long a = ab / WB;
-    dst[i] = src[((oa + a) * B + ob + b) * 32 + v];
+// the most 128-lane rows (512 bytes each) one block of the window copy
+// holds: a window of WA WB rows splits into ceil(WA WB / kWindowPartRows)
+// parts, one block each; and the threads of a block
+constexpr int kWindowPartRows = 51;
+constexpr int kWindowThreads = 256;
+
+// Block (p, k) of the grid (parts, n_win) copies part p of window k: the
+// window's rows l in [l0, l1) (l = a WB + b; the parts split the WA WB
+// rows as evenly as they go) from src, viewed as (A, B) rows of 128 lanes,
+// at (offs[2k], offs[2k + 1]) clamped into it, into its shared memory by
+// the TMA: one bulk copy per run of rows contiguous in src (the part's
+// share of each a of WB rows, or the whole part where WB == B), issued by
+// the lanes of warp 0 after its lanes read the offsets, all on one
+// mbarrier that expects the part's bytes. In the last window's blocks
+// every thread waits, then writes the part's rows below out_rows to out,
+// 16 bytes a thread; in any other block only thread 0 waits (the block
+// must not leave while a copy into its shared memory is in flight).
+__global__ void __launch_bounds__(kWindowThreads)
+window_copy_kernel(const float4* __restrict__ src, int A, int B,
+                   const int* __restrict__ offs, int WA, int WB,
+                   float4* __restrict__ out, int out_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* part = reinterpret_cast<float4*>(smem + 16);
+  const uint32_t bar = smem_addr(smem);
+  const int k = blockIdx.y, p = blockIdx.x, parts = gridDim.x;
+  const int rows = WA * WB, q = rows / parts, rem = rows % parts;
+  const int l0 = p * q + min(p, rem), l1 = l0 + q + (p < rem);
+  const int t = threadIdx.x;
+  if (t < 32) {
+    const int oa = clampi(__ldg(offs + 2 * k), 0, A - WA);
+    const int ob = clampi(__ldg(offs + 2 * k + 1), 0, B - WB);
+    if (t == 0) {
+      mbar_init(bar);
+      mbar_expect_tx(bar, static_cast<uint32_t>(l1 - l0) * 512);
+    }
+    __syncwarp();
+    const float4* win = src + (static_cast<size_t>(oa) * B + ob) * 32;
+    if (WB == B) {
+      if (t == 0)
+        bulk_load(smem_addr(part), win + static_cast<size_t>(l0) * 32,
+                  static_cast<uint32_t>(l1 - l0) * 512, bar);
+    } else {
+      for (int a = l0 / WB + t; a * WB < l1; a += 32) {
+        const int b0 = max(l0 - a * WB, 0), b1 = min(l1 - a * WB, WB);
+        bulk_load(smem_addr(part + (a * WB + b0 - l0) * 32),
+                  win + (static_cast<size_t>(a) * B + b0) * 32,
+                  static_cast<uint32_t>(b1 - b0) * 512, bar);
+      }
+    }
   }
-  __syncthreads();
-  if (k == static_cast<int>(gridDim.x) - 1)
-    for (int i = threadIdx.x; i < out_vecs; i += blockDim.x) out[i] = dst[i];
+  const bool last = k == static_cast<int>(gridDim.y) - 1;
+  if (!last && t != 0) return;
+  if (last) __syncthreads();   // the barrier's init
+  mbar_wait0(bar);
+  if (!last) return;
+  const int n = (min(l1, out_rows) - l0) * 32;
+  float4* dst = out + static_cast<size_t>(l0) * 32;
+  for (int i = t; i < n; i += blockDim.x) dst[i] = part[i];
 }
 
 template <typename K, typename... Args>
 int launch_flat(K kernel, long long n, cudaStream_t s, Args... args) {
   kernel<<<blocks_for(n), kThreads, 0, s>>>(args..., n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P6's two launches: the transpose into lm (kLaneTile-square tiles), then
+// the gather-sum (lanes along the grid's x, rows along its y, at most
+// 65,535 row blocks, each thread striding over the rest)
+template <typename T>
+int launch_rows_sum(const void* table, const int* idx, void* lm, int P,
+                    void* out, int S, int C, int R, int inner, int n_valid,
+                    cudaStream_t s) {
+  const dim3 block(kLaneTile, kTileRows);
+  const dim3 tiles((P + kLaneTile - 1) / kLaneTile,
+                   (C + kLaneTile - 1) / kLaneTile);
+  lane_major_kernel<T><<<tiles, block, 0, s>>>(
+      static_cast<const T*>(table), static_cast<T*>(lm), S, C, P, n_valid);
+  const int row_blocks = (R + kTileRows - 1) / kTileRows;
+  const dim3 grid((C + kLaneTile - 1) / kLaneTile,
+                  row_blocks < 65535 ? row_blocks : 65535);
+  auto kernel = inner == kRowsSumVector
+                    ? gather_rows_sum_kernel<T, kRowsSumVector>
+                    : gather_rows_sum_kernel<T, 0>;
+  kernel<<<grid, block, 0, s>>>(static_cast<const T*>(lm), P, idx,
+                                static_cast<T*>(out), S, C, R, inner);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -976,19 +1127,24 @@ extern "C" int sf_probe_box_sum(const void* vol, int SX, int SY, int SZ,
   return static_cast<int>(cudaGetLastError());
 }
 
-// P6: table (S, C), idx (n / C, C) int32, out like idx; f32, or u32 bits
-// (is_u32) added with wraparound.
+// P6: table (S, C), idx (R, C) int32, out like idx, lm (C, P) the
+// lane-major scratch (P a multiple of 4, at least S + max(inner, 1) - 1,
+// 16-byte aligned); f32, or u32 bits (is_u32) added with wraparound. Two
+// launches: the transpose into lm, then the gather-sum from it.
 extern "C" int sf_probe_gather_rows_sum(const void* table, const void* idx,
-                                        void* out, int S, int C, long long n,
-                                        int inner, int is_u32, void* stream) {
+                                        void* lm, int P, void* out, int S,
+                                        int C, int R, int inner, int is_u32,
+                                        void* stream) {
+  const int n_valid = S + (inner > 0 ? inner : 1) - 1;
+  if (P % 4 != 0 || P < n_valid || S < 1 ||
+      reinterpret_cast<uintptr_t>(lm) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0 || C == 0) return 0;
   const int* ix = static_cast<const int*>(idx);
-  if (is_u32)
-    return launch_flat(gather_rows_sum_kernel<uint32_t>, n, STREAM,
-                       static_cast<const uint32_t*>(table), ix,
-                       static_cast<uint32_t*>(out), S, C, inner);
-  return launch_flat(gather_rows_sum_kernel<float>, n, STREAM,
-                     static_cast<const float*>(table), ix,
-                     static_cast<float*>(out), S, C, inner);
+  return is_u32 ? launch_rows_sum<uint32_t>(table, ix, lm, P, out, S, C, R,
+                                            inner, n_valid, STREAM)
+                : launch_rows_sum<float>(table, ix, lm, P, out, S, C, R,
+                                         inner, n_valid, STREAM);
 }
 
 // P7: table (R, C) f32, idx (R, C) int32, out (R, C).
@@ -1127,22 +1283,21 @@ extern "C" int sf_probe_noop(void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// P11: n_win windows; scratch null: each window in shared memory
-// (WA * WB * 512 <= 232,448 B); else scratch holds n_win windows.
+// P11: n_win windows of (WA, WB) 128-lane rows of src (A, B, 128) f32,
+// 16-byte aligned; out (out_rows, 128), out_rows <= WA WB. Each window
+// splits into ceil(WA WB / kWindowPartRows) blocks.
 extern "C" int sf_probe_window_copy(const void* src, int A, int B,
                                     const void* offs, int n_win, int WA,
-                                    int WB, void* scratch, void* out,
-                                    int out_rows, void* stream) {
-  size_t smem = 0;
-  if (scratch == nullptr) {
-    static bool opted_in = false;
-    cudaError_t err = allow_smem(window_copy_kernel, opted_in);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem = static_cast<size_t>(WA) * WB * 512;
-  }
-  window_copy_kernel<<<n_win, kBigThreads, smem, STREAM>>>(
+                                    int WB, void* out, int out_rows,
+                                    void* stream) {
+  static bool opted_in = false;
+  const cudaError_t err = allow_smem(window_copy_kernel, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = WA * WB;
+  const int parts = (rows + kWindowPartRows - 1) / kWindowPartRows;
+  const size_t smem = 16 + static_cast<size_t>(rows + parts - 1) / parts * 512;
+  window_copy_kernel<<<dim3(parts, n_win), kWindowThreads, smem, STREAM>>>(
       static_cast<const float4*>(src), A, B, static_cast<const int*>(offs),
-      WA, WB, static_cast<float4*>(scratch), static_cast<float4*>(out),
-      out_rows * 32);
+      WA, WB, static_cast<float4*>(out), out_rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,7 +33,7 @@ _SIGNATURES = {
     "sf_probe_gather_global": [_P, _I, _P, _P, _L],
     "sf_probe_scatter_add": [_P, _P, _L, _P, _I],
     "sf_probe_box_sum": [_P, _I, _I, _I, _P, _I, _P],
-    "sf_probe_gather_rows_sum": [_P, _P, _P, _I, _I, _L, _I, _I],
+    "sf_probe_gather_rows_sum": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I],
     "sf_probe_take_lanes": [_P, _P, _P, _I, _L],
     "sf_probe_f16_pack": [_P, _P, _L],
     "sf_probe_lane_swap": [_P, _P, _I, _L],
@@ -47,7 +47,7 @@ _SIGNATURES = {
     "sf_probe_narrow_pad": [_P, _P, _I, _L],
     "sf_probe_regroup": [_P, _P, _I, _L],
     "sf_probe_offset_copy": [_P, _P, _I, _I],
-    "sf_probe_window_copy": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _I],
+    "sf_probe_window_copy": [_P, _I, _I, _P, _I, _I, _I, _P, _I],
     "sf_probe_noop": [],
 }
 

@@ -8,10 +8,12 @@ Port of ``tools/probe_dynamic_gather.py``:
 - ``take_lanes`` replaces ``probe_axis1`` (``:91``, body ``:94``):
   ``out[i, j] = table[i, idx[i, j] % C]``.
 
-The tables stay in device memory at every S: at S = 32,768 a table is
-16 MiB, far above the 227 KB of shared memory one block can have, and the
-50 MB L2 holds it. Each result is held against its plain version before it
-is timed.
+``gather_rows_sum`` first writes the table lane-major into a scratch
+(``lane_major_width``: each lane's entries in a row of their own, ending
+with its first ``inner - 1`` entries again, padded to 16 bytes), so that
+one output's ``inner`` entries lie side by side, then sums each output's
+window from there (``rows_sum_route``). Each result is held against its
+plain version before it is timed.
 
     python -m segfusion_tpu_torch.probes.dynamic_gather [--device cpu]
 """
@@ -25,10 +27,13 @@ from ..device import resolve_device
 from . import _lib
 
 __all__ = ["gather_rows_sum", "gather_rows_sum_plain", "take_lanes",
-           "take_lanes_plain", "main", "launch_counts",
-           "reset_launch_counts"]
+           "take_lanes_plain", "lane_major_width", "rows_sum_route", "main",
+           "launch_counts", "reset_launch_counts"]
 
 INNER = 8
+# the term count the kernel reads as 16-byte vectors (kRowsSumVector in
+# csrc/probes.cu)
+ROWS_SUM_VECTOR = 8
 
 
 def gather_rows_sum_plain(table: torch.Tensor, idx: torch.Tensor,
@@ -47,10 +52,26 @@ def take_lanes_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(table, 1, idx.long() % table.shape[1])
 
 
+def lane_major_width(S: int, inner: int) -> int:
+    """The length of each lane's row in the lane-major scratch: the S
+    entries and the first ``inner - 1`` again (at least the S), rounded up
+    to a whole 16-byte vector."""
+    return -(-(S + max(inner, 1) - 1) // 4) * 4
+
+
+def rows_sum_route(inner: int) -> str:
+    """How the kernel reads each output's window from the lane-major
+    scratch: the probe's 8 terms as the 2 or 3 aligned 16-byte vectors
+    over it, any other count one entry at a time."""
+    return ("lane-major, 16-byte vectors" if inner == ROWS_SUM_VECTOR
+            else "lane-major, loop over k")
+
+
 def gather_rows_sum(table: torch.Tensor, idx: torch.Tensor,
                     inner: int = INNER) -> torch.Tensor:
-    """P6 on the card (``gather_rows_sum_kernel``): ``table`` (S, C) f32 or
-    int32 (u32 bits), ``idx`` (R, C) int32."""
+    """P6 on the card (``lane_major_kernel``, then
+    ``gather_rows_sum_kernel``): ``table`` (S, C) f32 or int32 (u32 bits),
+    ``idx`` (R, C) int32, any values (taken mod S)."""
     if _lib.on_cpu("gather_rows_sum", table, idx):
         return gather_rows_sum_plain(table, idx, inner)
     if table.dtype not in (torch.float32, torch.int32):
@@ -58,14 +79,19 @@ def gather_rows_sum(table: torch.Tensor, idx: torch.Tensor,
                         f"got {table.dtype}")
     _lib.require("gather_rows_sum", "table", table, table.dtype, ndim=2)
     _lib.require("gather_rows_sum", "idx", idx, torch.int32, ndim=2)
-    if idx.shape[1] != table.shape[1] or inner < 0:
+    (S, C), R = table.shape, idx.shape[0]
+    width = lane_major_width(S, inner)
+    if idx.shape[1] != C or inner < 0 or S < 1:
         raise ValueError("gather_rows_sum: idx must have the table's "
                          f"columns, got {tuple(idx.shape)} for "
-                         f"{tuple(table.shape)}")
+                         f"{tuple(table.shape)}, inner {inner}")
+    if width >= 2 ** 31:
+        raise ValueError("gather_rows_sum: the kernel indexes a lane's row "
+                         "with 32-bit ints")
+    lm = torch.empty((C, width), dtype=table.dtype, device=table.device)
     out = torch.empty(idx.shape, dtype=table.dtype, device=table.device)
     _lib.launch("sf_probe_gather_rows_sum", "gather_rows_sum_kernel",
-                table.device, table, idx, out, table.shape[0],
-                table.shape[1], idx.numel(), inner,
+                table.device, table, idx, lm, width, out, S, C, R, inner,
                 int(table.dtype == torch.int32))
     gather_rows_sum.launches += 1
     return out
@@ -138,7 +164,7 @@ def main(device="cuda"):
     dev = resolve_device(device)
     print(_lib.device_line(dev), flush=True)
     print(f"== gather-sum along rows (axis=0, per-lane table, {INNER} terms; "
-          "tables in device memory) ==", flush=True)
+          f"{rows_sum_route(INNER)}) ==", flush=True)
     for S in (8, 64, 512, 4096, 8192, 32768):
         probe(S, torch.float32, dev)
     print("== axis=0, u32 (int32 bits, wrapping add) ==", flush=True)

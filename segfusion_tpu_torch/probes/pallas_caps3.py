@@ -13,10 +13,11 @@ window, with dynamic offsets on both major axes of the geo state viewed as
   ``offs[2k]``; the result is the last window.
 
 Offsets are clamped into the source (as lax.dynamic_slice clamps). The TPU
-ran the copies one after another on one core; the card copies one window
-per block, all in parallel (``csrc/probes.cu``), into shared memory where
-a window fits and into a device-memory scratch where it does not
-(``copy_route``).
+ran the copies one after another on one core, each window by one DMA into
+VMEM; the card copies all windows in parallel, each split over blocks of
+at most ``WINDOW_PART_ROWS`` 128-lane rows, each block's part landing in
+its shared memory by the TMA's bulk copies (``csrc/probes.cu``,
+``copy_route``).
 
     python -m segfusion_tpu_torch.probes.pallas_caps3 [--device cpu]
 """
@@ -30,10 +31,13 @@ from ..device import resolve_device
 from . import _lib
 
 __all__ = ["window_copy", "window_copy_plain", "flat_copy",
-           "flat_copy_plain", "copy_route", "main", "launch_counts",
-           "reset_launch_counts"]
+           "flat_copy_plain", "window_parts", "copy_route", "main",
+           "launch_counts", "reset_launch_counts"]
 
 REPS = 64
+# the most 128-lane rows one block of the copy holds (kWindowPartRows in
+# csrc/probes.cu)
+WINDOW_PART_ROWS = 51
 
 
 def _clamp(v: int, hi: int) -> int:
@@ -65,10 +69,15 @@ def flat_copy_plain(src: torch.Tensor, offs: torch.Tensor, wn: int
     return _copies_plain(src[:, None], offs, wn, 1)[:, 0]
 
 
+def window_parts(wa: int, wb: int) -> int:
+    """The blocks one (wa, wb) window splits into on the card."""
+    return -(-wa * wb // WINDOW_PART_ROWS)
+
+
 def copy_route(wa: int, wb: int) -> str:
-    """Where each window's copy lands on the card."""
-    return ("shared memory" if wa * wb * 512 <= _lib.SMEM_BYTES
-            else "device-memory scratch")
+    """How each window's copy lands on the card."""
+    return (f"bulk copies into shared memory, {window_parts(wa, wb)} "
+            "blocks a window")
 
 
 def _copy(name, src3, offs, wa, wb, out_rows):
@@ -78,13 +87,14 @@ def _copy(name, src3, offs, wa, wb, out_rows):
     if n_win < 1 or offs.numel() % 2 or not (0 < wa <= A and 0 < wb <= B):
         raise ValueError(f"{name}: window ({wa}, {wb}) or {offs.numel()} "
                          f"offsets do not fit a {tuple(src3.shape)} source")
-    scratch = (None if copy_route(wa, wb) == "shared memory" else
-               torch.empty((n_win, wa, wb, 128), dtype=torch.float32,
-                           device=src3.device))
+    if src3.data_ptr() % 16 or n_win > 65535 or wa * wb >= 2 ** 31:
+        raise ValueError(f"{name}: the bulk copies need a 16-byte-aligned "
+                         "source, windows of fewer than 2^31 rows and at "
+                         "most 65,535 of them")
     out = torch.empty((out_rows, 128), dtype=torch.float32,
                       device=src3.device)
     _lib.launch("sf_probe_window_copy", "window_copy_kernel", src3.device,
-                src3, A, B, offs, n_win, wa, wb, scratch, out, out_rows)
+                src3, A, B, offs, n_win, wa, wb, out, out_rows)
     return out
 
 

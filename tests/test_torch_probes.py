@@ -509,6 +509,96 @@ def test_gather_rows_sum_wraps_like_u32():
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
+# P6's constants (kRowsSumVector, kLaneTile, kTileRows in csrc/probes.cu;
+# test_rows_sum_and_window_models_constants_match_the_kernel holds them)
+ROWS_SUM_VECTOR, LANE_TILE, TILE_ROWS = 8, 32, 8
+
+
+def rows_sum_model(table, idx, inner):
+    """numpy model of P6's two kernels (csrc/probes.cu). The transpose: the
+    lane-major scratch lm (C, P), P = ``lane_major_width`` (S + inner - 1,
+    at least S, rounded up to 4), lm[j, s] = table[s mod S, j] below
+    S + max(inner, 1) - 1 and 0 after, written tile by tile, LANE_TILE
+    square. The gather-sum: output (i, j) takes r = idx mod S (the 32-bit
+    remainder, plus S where negative) and, at inner == ROWS_SUM_VECTOR,
+    reads the 2 or 3 aligned 4-entry vectors over [r, r + 8) of lm[j]
+    (the third only where r mod 4 != 0) and picks the entries by r mod 4,
+    else reads lm[j, r + k]; the entries are added in order of k from 0
+    (one f32 rounding per add, or a wrapping u32 add). ``table`` f32 or
+    u32. Returns (out, how often each lm entry is written, the vectors
+    each output read)."""
+    S, C = table.shape
+    P = dynamic_gather.lane_major_width(S, inner)
+    n_valid = S + max(inner, 1) - 1
+    assert P % 4 == 0 and n_valid <= P < n_valid + 4
+    src = np.zeros((P, C), table.dtype)
+    src[:n_valid] = table[np.arange(n_valid) % S]
+    lm = np.full((C, P), 7, table.dtype)
+    written = np.zeros((C, P), np.int64)
+    for bx in range(-(-P // LANE_TILE)):
+        for by in range(-(-C // LANE_TILE)):
+            s = slice(bx * LANE_TILE, (bx + 1) * LANE_TILE)
+            j = slice(by * LANE_TILE, (by + 1) * LANE_TILE)
+            lm[j, s] = src[s, j].T
+            written[j, s] += 1
+    r = np.fmod(idx, S)
+    r = np.where(r < 0, r + S, r)
+    lanes = np.broadcast_to(np.arange(C), idx.shape)
+    acc = np.zeros(idx.shape, table.dtype)
+    vectors = np.zeros(idx.shape, np.int64)
+    if inner == ROWS_SUM_VECTOR:
+        m = r & 3
+        vectors = np.where(m > 0, 3, 2)
+        assert (r - m + 4 * vectors <= P).all()     # inside the row
+        words = np.stack([np.where(w < 4 * vectors,
+                                   lm[lanes, np.minimum(r - m + w, P - 1)],
+                                   0) for w in range(12)], -1)
+        for k in range(inner):
+            acc = acc + np.take_along_axis(words, (m + k)[..., None],
+                                           -1)[..., 0]
+    else:
+        for k in range(inner):
+            acc = acc + lm[lanes, r + k]
+    return acc, written, vectors
+
+
+# (S, inner): inner > S occurs (8 at S 8, 9 at S 8 and 9)
+ROWS_SUM_CASES = [(S, inner) for S in (8, 9, 64, 513)
+                  for inner in (0, 1, 2, 8, 9)]
+
+
+@pytest.mark.parametrize("u32", [False, True], ids=["f32", "u32"])
+@pytest.mark.parametrize("S,inner", ROWS_SUM_CASES,
+                         ids=[f"S{S}-inner{i}" for S, i in ROWS_SUM_CASES])
+def test_rows_sum_model_is_the_plain_version(S, inner, u32):
+    """The lane-major model reproduces ``gather_rows_sum_plain`` bit for
+    bit, on indices that are negative, at least S and at the int32
+    extremes; every scratch entry is written once; the probe's 8 terms
+    read 2 or 3 vectors an output, inside the row."""
+    rng = np.random.RandomState(S * 10 + inner)
+    R, C = 21, 40
+    idx = rng.randint(-5 * S, 5 * S, (R, C)).astype(np.int32)
+    idx.flat[::7] = np.iinfo(np.int32).min
+    idx.flat[3::11] = np.iinfo(np.int32).max
+    if u32:
+        table = rng.randint(0, 2 ** 32, (S, C), dtype=np.uint64) \
+            .astype(np.uint32)
+        want = dynamic_gather.gather_rows_sum_plain(
+            _t(table.view(np.int32)), _t(idx), inner).numpy().view(np.uint32)
+    else:
+        table = rng.randn(S, C).astype(np.float32)
+        want = dynamic_gather.gather_rows_sum_plain(_t(table), _t(idx),
+                                                    inner).numpy()
+    out, written, vectors = rows_sum_model(table, idx, inner)
+    assert (written == 1).all()
+    np.testing.assert_array_equal(out, want)
+    if inner == ROWS_SUM_VECTOR:
+        assert set(np.unique(vectors)) <= {2, 3}
+    assert dynamic_gather.rows_sum_route(inner) == (
+        "lane-major, 16-byte vectors" if inner == ROWS_SUM_VECTOR
+        else "lane-major, loop over k")
+
+
 def test_take_lanes_matches_jax():
     """probe_axis1 of tools/probe_dynamic_gather.py (:94-97), at (16, 128)."""
     S = 16
@@ -744,6 +834,131 @@ def test_window_copies_match_jax(form):
     else:
         got = pallas_caps3.flat_copy(_t(src), _t(offs), WY * WG)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def window_model(src3, offs, wa, wb, out_rows, parts=None):
+    """numpy model of window_copy_kernel (csrc/probes.cu) on an (A, B, 128)
+    source: the grid (parts, n_win), parts = ``window_parts`` unless given;
+    block (p, k) holds window k's rows l in [l0, l1) (l = a wb + b; the
+    parts split the wa wb rows as evenly as they go) from the offsets
+    clamped into the source. Lane t of warp 0 issues one bulk copy per run
+    of rows contiguous in the source: the whole part where wb == B, else
+    the part's share of a = l0 // wb + t, + 32, ... Only the last window's
+    blocks write their rows below out_rows. Returns (out, how often each
+    row of each window lands in a block, the shared memory a block asks
+    for, the number of blocks that write the output)."""
+    A, B = src3.shape[:2]
+    src2 = src3.reshape(A * B, 128)
+    n_win = len(offs) // 2
+    rows = wa * wb
+    parts = parts or pallas_caps3.window_parts(wa, wb)
+    q, rem = divmod(rows, parts)
+    smem = 16 + -(-rows // parts) * 512
+    landed = np.zeros((n_win, rows), np.int64)
+    out = np.full((out_rows, 128), np.nan, np.float32)
+    writers = 0
+    for k in range(n_win):
+        oa = min(max(int(offs[2 * k]), 0), A - wa)
+        ob = min(max(int(offs[2 * k + 1]), 0), B - wb)
+        for p in range(parts):
+            l0 = p * q + min(p, rem)
+            l1 = l0 + q + (p < rem)
+            assert l1 > l0
+            runs = [(l0, l1)] if wb == B else []
+            for lane in range(32 if wb != B else 0):
+                a = l0 // wb + lane
+                while a * wb < l1:
+                    runs.append((a * wb + max(l0 - a * wb, 0),
+                                 a * wb + min(l1 - a * wb, wb)))
+                    a += 32
+            part = np.full((l1 - l0, 128), np.nan, np.float32)
+            copied = 0
+            for r0, r1 in runs:
+                a, b = divmod(r0, wb)
+                assert wb == B or (r1 - 1) // wb == a   # one a a run
+                first = (oa + a) * B + ob + b
+                part[r0 - l0:r1 - l0] = src2[first:first + r1 - r0]
+                landed[k, r0:r1] += 1
+                copied += (r1 - r0) * 512
+            assert copied == (l1 - l0) * 512   # the barrier's bytes
+            if k == n_win - 1 and l0 < out_rows:
+                n = min(l1, out_rows) - l0
+                out[l0:l0 + n] = part[:n]
+                writers += 1
+    return out, landed, smem, writers
+
+
+# (form, source (A, B), window, offsets): windows of 10 and 57 a-rows (not
+# divisible by 2 or 4), offsets past each face, a strided window as wide
+# as the source (one run), a tiny one, flat windows of 70 and 405 rows
+WINDOW_CASES = [
+    ("strided", (40, 28), (10, 7), [-5, -3, 99, 30, 30, 21, 3, 2]),
+    ("strided", (60, 28), (57, 7), [2, 24, -1, 40, 9, 4]),
+    ("strided", (40, 28), (9, 28), [5, 3, -1, 0, 39, 0]),
+    ("strided", (40, 28), (3, 5), [2, 24, 7, -9]),
+    ("flat", (1120, 1), (70, 1), [-7, 0, 10 ** 6, 0, 1050, 0, 5, 0]),
+    ("flat", (1120, 1), (405, 1), [-7, 0, 10 ** 6, 0, 700, 0]),
+]
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4, None],
+                         ids=["P1", "P2", "P4", "rule"])
+@pytest.mark.parametrize("case", range(len(WINDOW_CASES)),
+                         ids=[f"{f}{w}" for f, _, w, _ in WINDOW_CASES])
+def test_window_model_copies_each_row_once(case, parts):
+    """Every row of every window lands in exactly one block, each run is
+    contiguous in the source and the runs fill the barrier's bytes, the
+    shared memory fits, and the output is the plain version's (the last
+    window, or its first row block for the strided form), written by the
+    last window's blocks that hold it."""
+    form, (A, B), (wa, wb), offs = WINDOW_CASES[case]
+    src3 = np.random.RandomState(case).rand(A, B, 128).astype(np.float32)
+    offs = np.array(offs, np.int32)
+    out_rows = wb if form == "strided" else wa
+    out, landed, smem, writers = window_model(src3, offs, wa, wb, out_rows,
+                                              parts)
+    assert (landed == 1).all()
+    assert smem <= _SMEM_BYTES
+    n_parts = parts or pallas_caps3.window_parts(wa, wb)
+    q, rem = divmod(wa * wb, n_parts)
+    assert writers == sum(p * q + min(p, rem) < out_rows
+                          for p in range(n_parts))
+    if form == "strided":
+        want = pallas_caps3.window_copy_plain(_t(src3), _t(offs), wa, wb)
+    else:
+        want = pallas_caps3.flat_copy_plain(_t(src3[:, 0]), _t(offs), wa)
+    np.testing.assert_array_equal(out, want.numpy())
+
+
+def test_rows_sum_and_window_models_constants_match_the_kernel():
+    """The models' constants are the kernels': P6's vector of 8 terms, its
+    tiles, the scratch's padding rule (checked by the launcher) and the
+    pick by r mod 4; P11's rows a block, its split of a window's rows and
+    the shared memory it asks for; the probe's windows split 8 ways and
+    the largest part fits shared memory."""
+    src = open(os.path.join(ROOT, "segfusion_tpu_torch", "csrc",
+                            "probes.cu")).read()
+    for name, value in (("kRowsSumVector", ROWS_SUM_VECTOR),
+                        ("kLaneTile", LANE_TILE), ("kTileRows", TILE_ROWS),
+                        ("kWindowPartRows", pallas_caps3.WINDOW_PART_ROWS)):
+        assert f"constexpr int {name} = {value};" in src
+    assert dynamic_gather.ROWS_SUM_VECTOR == ROWS_SUM_VECTOR
+    assert "const int n_valid = S + (inner > 0 ? inner : 1) - 1;" in src
+    assert "if (P % 4 != 0 || P < n_valid || S < 1 ||" in src
+    assert "const int m = r & 3;" in src
+    assert "const uint4 c = m ? __ldg(v + 2) : make_uint4(0u, 0u, 0u, 0u);" \
+        in src
+    assert ("const int l0 = p * q + min(p, rem), l1 = l0 + q + (p < rem);"
+            in src)
+    assert ("const int parts = (rows + kWindowPartRows - 1) / "
+            "kWindowPartRows;") in src
+    assert ("16 + static_cast<size_t>(rows + parts - 1) / parts * 512"
+            in src)
+    assert "for (int a = l0 / WB + t; a * WB < l1; a += 32) {" in src
+    assert pallas_caps3.window_parts(58, 7) == 8
+    assert 16 + pallas_caps3.WINDOW_PART_ROWS * 512 <= _SMEM_BYTES
+    assert dynamic_gather.lane_major_width(32768, 8) == 32776
+    assert dynamic_gather.lane_major_width(9, 0) == 12
 
 
 # -- the probes' entry points on the CPU ------------------------------------------
