@@ -26,13 +26,15 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    (``segfusion_tpu_torch/probes``, ``csrc/probes.cu``, the ports of the
    Pallas probes of ``tools/``) against their plain versions at the tools'
    own sizes, the shared-memory gather, the offset copy, the box sum and
-   the lane roll also at ragged, misaligned and clamped inputs and other
-   shifts, the gather-sum at other table sizes and term counts on indices
-   of any int32, and the window copy at windows past every face (each
-   label names the route the kernel takes): bit-exact, or within the
-   stated tolerance (the scatter-add's atomics on random updates); the
-   gather-sum's library call (``embedding_bag``) with its error against
-   the plain version; kernel, plain and library-call times (under 0.1 ms:
+   the lane roll, the four-roll sum and the lane take also at ragged,
+   misaligned and clamped inputs, other shifts and indices of any int32,
+   the gather-sum at other table sizes and term counts on indices of any
+   int32, and the window copy at windows past every face (each label
+   names the route the kernel takes): bit-exact, or within the stated
+   tolerance (the scatter-add's atomics on random updates); each library
+   call of a kernel-shaped result (``embedding_bag``, ``gather``, the
+   linear lane bodies' matrix products) with its error against the plain
+   version; kernel, plain and library-call times (under 0.1 ms:
    the median of 5 replays of 200 calls in a CUDA graph, with the
    replays' spread), the traffic bound and the probe's rate; then each probe
    module's ``main`` once, as ``python -m
@@ -679,15 +681,44 @@ def gather_cases(dev, g):
             lambda t=t, ix=ix, inner=inner: dg.gather_rows_sum_plain(
                 t, ix, inner), None,
             rows_sum_bytes(ix, S, inner), ix.numel() * inner))
-    t = torch.rand((128, 128), generator=g, device=dev)
-    ix = randint(128, 128, 128)
-    rows = torch.arange(128, device=dev)[:, None] * 128
-    cases.append(Case("take_lanes (128, 128)", "take_lanes",
-                      lambda: dg.take_lanes(t, ix),
-                      lambda: dg.take_lanes_plain(t, ix),
-                      lambda i64=ix.long(): torch.gather(t, 1, i64),
-                      4 * touched(rows + ix.long(), 128 * 128)
-                      + 8 * 128 * 128, 128 * 128))
+    # P7: the probe's (128, 128) on in-range indices, then indices of any
+    # int32 (the extremes among them) at 3, 19 and 777 rows, a table and an
+    # index each seen 4 bytes past a 16-byte boundary, and 100 lanes (the
+    # last three the lane loop); torch.gather's index, in range, is built
+    # outside the timed call
+    def any_int32(rows, C, mis=0):
+        raw = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows * C + mis,),
+                            generator=g, device=dev, dtype=torch.int32)
+        raw[::97] = -2 ** 31
+        raw[1::89] = 2 ** 31 - 1
+        return raw[mis:].view(rows, C)
+
+    takes = [("(128, 128)", torch.rand((128, 128), generator=g, device=dev),
+              randint(128, 128, 128))]
+    takes += [(f"({r}, 128), any int32 index",
+               torch.rand((r, 128), generator=g, device=dev),
+               any_int32(r, 128)) for r in (128, 3, 19, 777)]
+    takes += [("(19, 128) misaligned table view, any int32 index",
+               torch.rand(19 * 128 + 1, generator=g, device=dev)[1:]
+               .view(19, 128), any_int32(19, 128)),
+              ("(19, 128), misaligned index view of any int32",
+               torch.rand((19, 128), generator=g, device=dev),
+               any_int32(19, 128, mis=1)),
+              ("(8, 100), any int32 index",
+               torch.rand((8, 100), generator=g, device=dev),
+               any_int32(8, 100))]
+    for i, (label, t, ix) in enumerate(takes):
+        R, C = t.shape
+        src = ix.long() % C
+        rows = torch.arange(R, device=dev)[:, None] * C
+        cases.append(Case(
+            f"take_lanes {label} [{dg.take_lanes_route(t, ix)}]",
+            "take_lanes" if i == 0 else None,
+            lambda t=t, ix=ix: dg.take_lanes(t, ix),
+            lambda t=t, ix=ix: dg.take_lanes_plain(t, ix),
+            lambda t=t, src=src: torch.gather(t, 1, src),
+            4 * touched(rows + src, R * C) + 8 * R * C, R * C,
+            check_library=True))
     return cases
 
 
@@ -744,7 +775,8 @@ def copy_cases(dev, g):
 def lane_cases(dev, g):
     """The lane bodies (P8, P9, P10, P12) on standard normal inputs of the
     tools' shapes; bytes: the lanes and rows each body reads, once, and
-    its output."""
+    its output. The library calls of the linear bodies are one matrix
+    product with a 0/1/2/3 matrix built outside the timed call."""
     c1, c2, sd = pallas_caps, pallas_caps2, shadow_debug
     x8 = torch.randn((8, 128), generator=g, device=dev)
     x32 = torch.randn((32, 512), generator=g, device=dev)
@@ -753,32 +785,68 @@ def lane_cases(dev, g):
     big = torch.randn((64, 128), generator=g, device=dev)
     first4 = torch.arange(4, device=dev)
     n8, n32, n16 = 8 * 128 * 4, 32 * 512 * 4, 16 * 128 * 4   # bytes
+    # (source lane, output lane) matrices: out = x @ W
+    eye = torch.eye(128, device=dev)
+    w_store16 = eye.clone()
+    w_store16[:32, :32] = 0.0
+    w_store16[range(16), range(16)] = 2.0
+    w_store16[range(16), range(16, 32)] = 3.0
+    w_rolls = sum(torch.roll(eye, s, 1) for s in (1, 15, 16, 48))
+    w_narrow = eye + torch.roll(eye, 16, 1)
+    w_narrow[:, 16:] = 0.0
+    eye16 = torch.eye(16, device=dev)
+    w_regroup = torch.cat([eye16, 2.0 * eye16])
+    # reshape_slices on (8, 2048) rows of 4 x 512 lanes: every output lane
+    # j takes lanes c, 640 + c and 1920 + c of its row, c = j mod 128
+    lane = torch.arange(2048, device=dev)
+    w_slices = torch.zeros((2048, 2048), device=dev)
+    for first in (0, 512 + 128, 3 * 512 + 384):
+        w_slices[first + lane % 128, lane] = 1.0
     table = [
         (c1.f16_pack, x8, None, 2 * n8),
         (c1.lane_swap, x8,
          lambda: torch.cat([x8[:, 64:], x8[:, :64]], 1), 2 * n8),
         (c1.roll64, x8, lambda: torch.roll(x8, 64, 1), 2 * n8),
-        (c1.reshape_slices, x32, None, n32 * 3 // 16 + n32),
+        (c1.reshape_slices, x32,
+         lambda: torch.mm(x32.view(8, 2048), w_slices).view(32, 512),
+         n32 * 3 // 16 + n32),
         (c1.qshift, x32, lambda: torch.nn.functional.pad(x32, (0, 0, 4, -4)),
          2 * n32 - 4 * 512 * 4),
         (c1.iota_mask, x32, lambda: x32.index_fill(0, first4, 0.0),
          2 * n32 - 4 * 512 * 4),
-        (c1.f16_unpack, x8, None, 2 * n8),
-        (c2.store16, x16, None, n16 * 112 // 128 + n16),
-        (c2.rolls_sum, x16, None, 2 * n16),
-        (c2.narrow_pad, x16, None, n16 * 32 // 128 + n16),
-        (c2.regroup, x3, None, 8 * 28 * 16 * 4 * 3 // 2),
+        # the high 16 bits of each word are its odd half on little-endian
+        (c1.f16_unpack, x8, lambda: x8.view(torch.float16)[:, 1::2].float(),
+         2 * n8),
+        (c2.store16, x16, lambda: torch.mm(x16, w_store16),
+         n16 * 112 // 128 + n16),
+        (c2.rolls_sum, x16, lambda: torch.mm(x16, w_rolls), 2 * n16),
+        (c2.narrow_pad, x16, lambda: torch.mm(x16, w_narrow),
+         n16 * 32 // 128 + n16),
+        (c2.regroup, x3, lambda: torch.matmul(x3.view(8, 14, 32), w_regroup),
+         8 * 28 * 16 * 4 * 3 // 2),
         (c2.offset_copy, big, lambda: torch.add(big[:32], 1.0),
          2 * 32 * 128 * 4),
         (sd.roll1, x8, lambda: torch.roll(x8, 1, 1), 2 * n8),
     ]
     plain = c1.PLAIN | c2.PLAIN | {sd.roll1: sd.roll1_plain}
-    rolls = (c1.roll64, sd.roll1)
+    rolls = (c1.roll64, sd.roll1, c2.rolls_sum)
     cases = [Case(f"{fn.__name__} {tuple(x.shape)}"
                   + (f" [{c1.roll_route(x)}]" if fn in rolls else ""),
                   fn.__name__, lambda fn=fn, x=x: fn(x),
-                  lambda fn=fn, x=x: plain[fn](x), lib, nbytes)
+                  lambda fn=fn, x=x: plain[fn](x), lib, nbytes,
+                  check_library=lib is not None)
              for fn, x, lib, nbytes in table]
+    # rolls_sum at 3 and 19 rows, and on the lane loop's inputs: a view 4
+    # bytes past a 16-byte boundary and 100 lanes
+    mis16 = torch.randn(16 * 128 + 1, generator=g, device=dev)[1:] \
+        .reshape(16, 128)
+    for x in (torch.randn((3, 128), generator=g, device=dev),
+              torch.randn((19, 128), generator=g, device=dev), mis16,
+              torch.randn((8, 100), generator=g, device=dev)):
+        cases.append(Case(
+            f"rolls_sum {tuple(x.shape)}{' (misaligned view)' * (x is mis16)}"
+            f" [{c1.roll_route(x)}]", None, lambda x=x: c2.rolls_sum(x),
+            lambda x=x: c2.rolls_sum_plain(x), None, 2 * x.numel() * 4))
     # the lane roll at shifts 3 and -5, and on the lane loop's inputs: 100
     # lanes and a view 4 bytes past a 16-byte boundary
     mis8 = torch.randn(8 * 128 + 1, generator=g, device=dev)[1:] \
@@ -817,8 +885,8 @@ def probe_counts() -> dict:
 
 def check_probes(dev):
     """The launch floor, then every probe kernel against its plain version
-    at the tools' sizes (and P2/P3/P5/P6/P10/P11/P12 at ragged,
-    misaligned and clamped inputs);
+    at the tools' sizes (and P2/P3/P5/P6/P7/P10/P11/P12 and P9's rolls_sum
+    at ragged, misaligned and clamped inputs);
     returns the kernels-line results, then runs each probe's main once
     with the launch counts reset and returns those counts too.
 

@@ -125,15 +125,35 @@
 //    the vectors (sectors, not instructions, pace it). Not built: a
 //    shared-memory route for tables of at most 454 rows of 128 lanes
 //    (none of the probe's sizes but 8 and 64).
-// P7 take_lanes_kernel <- probe_dynamic_gather.py probe_axis1 (:91, body
-//    :94). out[i, j] = table[i, idx[i, j] mod C]. One thread per element.
+// P7 take_lanes128_kernel / take_lanes_kernel <- probe_dynamic_gather.py
+//    probe_axis1 (:91, body :94). out[i, j] = table[i, idx[i, j] mod C].
+//    Bound: the launch (128 KiB at the probe's (128, 128), 0.05 us at 3.35
+//    TB/s), so only what lies between the launch and the store counts. The
+//    first design, one thread an element, made two dependent round trips
+//    (the index, then the table) and two 64-bit divisions (the row, the
+//    floor mod) an element. Design: for 128-lane rows at 16-byte-aligned
+//    addresses, one warp a row (kTakeWarps rows a block), each lane loading
+//    its table and index vectors together, so one round trip; the table
+//    vectors go into the warp's row of shared memory and each output is
+//    row[idx & 127], with no division. Measured and dropped (PERF.md):
+//    four __shfl_sync of the row's vectors an output in place of the
+//    shared row (16 exchanges and the selects: slower at every size) and
+//    8 warps a block (slightly slower). Any other width or alignment
+//    loops over the lanes as roll_lanes_kernel does, with a 32-bit floor
+//    mod.
 // P8 f16_pack / lane_swap / roll128 / reshape_slices / qshift /
 //    iota_mask / f16_unpack <- tools/probe_pallas_caps.py tryk (:19),
 //    bodies :36-91: lane and row permutations and the f16 pack and unpack
 //    (round to nearest even, __float2half_rn, as XLA converts). roll64 is
 //    P12's lane roll at shift 64.
 // P9 store16 / rolls_sum / narrow_pad / regroup <- tools/probe_pallas_caps2.py
-//    tryk (:18), bodies :34-66.
+//    tryk (:18), bodies :34-66. rolls_sum (k_rolls :42) sums four lane rolls
+//    in the plain version's order; bound: the launch (8 KiB at (16, 128)).
+//    Its first design took one thread an element, with two 64-bit divisions
+//    and four 64-bit floor mods. Design: P12's shuffle roll four times in
+//    one pass (rolls_sum128_kernel: a warp a 128-lane row, one load, the
+//    four rolls by roll_vec, one store); other widths and alignments take
+//    a lane loop with four 32-bit floor mods a thread.
 // P10 offset_copy_kernel <- probe_pallas_caps2.py main (:30, call :82, body
 //    k_dma :73): block k copies rows [k R, k R + R) at its dynamic offset
 //    and adds 1. Bound: the launch (16 KiB move in 0.01 us). Design: one
@@ -173,8 +193,9 @@
 //    rows at 16-byte-aligned addresses, one warp per row and one 16-byte
 //    vector a lane: each lane takes the vectors of two lanes by
 //    __shfl_sync and keeps elements by s mod 4 (the same in the whole
-//    warp), with no division; any other width or alignment loops over
-//    the lanes (one thread a lane, rows along the grid's y).
+//    warp), with no division (roll_vec, which P9's rolls_sum shares); any
+//    other width or alignment loops over the lanes (one thread a lane,
+//    rows along the grid's y).
 // What bounds P8-P10 and P12 at the probes' sizes (4-64 KiB) is the launch
 // itself; they are there to hold the TPU bodies' semantics, not to be fast.
 // noop_kernel, an empty block, measures that launch floor on the card.
@@ -208,8 +229,40 @@ __device__ __forceinline__ int floor_mod(long long a, int m) {
   return static_cast<int>(r < 0 ? r + m : r);
 }
 
+// the floor mod of an int32 by m > 0 (INT32_MIN included), in 32 bits
+__device__ __forceinline__ int floor_mod32(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// 128-lane rows, one warp a row, one 16-byte vector a lane (P7, P8 roll64,
+// P9 rolls_sum, P12): the warps of a block of the roll kernels and of the
+// lane take
+constexpr int kRollWarps = 8;
+constexpr int kTakeWarps = 4;
+
+__device__ __forceinline__ float4 shfl4(float4 v, int lane) {
+  return make_float4(__shfl_sync(0xffffffffu, v.x, lane),
+                     __shfl_sync(0xffffffffu, v.y, lane),
+                     __shfl_sync(0xffffffffu, v.z, lane),
+                     __shfl_sync(0xffffffffu, v.w, lane));
+}
+
+// Lane ``lane``'s vector of its warp's 128-lane row rolled by s = 4 q + m
+// in [0, 128) (out[l] = x[(l - s) mod 128]), every lane active and q, m the
+// same in the whole warp: the last m elements of lane (lane - q - 1) mod
+// 32's vector v and the first 4 - m of lane (lane - q) mod 32's.
+__device__ __forceinline__ float4 roll_vec(float4 v, int lane, int q, int m) {
+  const float4 hi = shfl4(v, (lane - q) & 31);
+  if (m == 0) return hi;
+  const float4 lo = shfl4(v, (lane - q - 1) & 31);
+  return m == 1 ? make_float4(lo.w, hi.x, hi.y, hi.z)
+         : m == 2 ? make_float4(lo.z, lo.w, hi.x, hi.y)
+                  : make_float4(lo.y, lo.z, lo.w, hi.x);
 }
 
 // Opt a kernel in to the full dynamic shared memory, once per launcher
@@ -662,14 +715,42 @@ gather_rows_sum_kernel(const T* __restrict__ lm, int P,
   }
 }
 
+// out[r, l] = table[r, idx[r, l] mod 128] for 128-lane rows: one warp per
+// row, kTakeWarps rows a block. Each lane issues its table vector's and its
+// index vector's loads together (one round trip), stores the table vector
+// into its warp's 512-byte row of shared memory and, after __syncwarp,
+// picks its four outputs from that row; idx & 127 is the floor mod by 128
+// of every int32 (two's complement), INT32_MIN included.
+__global__ void __launch_bounds__(kTakeWarps * 32)
+take_lanes128_kernel(const float4* __restrict__ table,
+                     const int4* __restrict__ idx, float4* __restrict__ out,
+                     int rows) {
+  __shared__ float4 smem[kTakeWarps][32];
+  const int w = threadIdx.x >> 5;
+  const int row = blockIdx.x * kTakeWarps + w;
+  if (row >= rows) return;   // the whole warp
+  const int lane = threadIdx.x & 31;
+  const size_t i = static_cast<size_t>(row) * 32 + lane;
+  const float4 v = table[i];
+  const int4 k = idx[i];
+  smem[w][lane] = v;
+  __syncwarp();
+  const float* r = reinterpret_cast<const float*>(smem[w]);
+  out[i] = make_float4(r[k.x & 127], r[k.y & 127], r[k.z & 127],
+                       r[k.w & 127]);
+}
+
+// out[r, l] = table[r, idx[r, l] mod C], any C: one thread a lane along the
+// grid's x, rows in strides of the grid's y, a 32-bit floor mod
 __global__ void take_lanes_kernel(const float* __restrict__ table,
                                   const int* __restrict__ idx,
-                                  float* __restrict__ out, int C,
-                                  long long n) {
-  const long long e = tid();
-  if (e >= n) return;
-  const long long row = e / C;
-  out[e] = table[row * C + floor_mod(idx[e], C)];
+                                  float* __restrict__ out, int rows, int C) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= C) return;
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const size_t row = static_cast<size_t>(r) * C;
+    out[row + l] = table[row + floor_mod32(idx[row + l], C)];
+  }
 }
 
 // -- P8 -----------------------------------------------------------------------
@@ -692,20 +773,9 @@ __global__ void lane_swap_kernel(const float* __restrict__ x,
   out[e] = x[row * C + (l + 64) % C];
 }
 
-// the warps of a block of the 128-lane roll: one 128-lane row each
-constexpr int kRollWarps = 8;
-
-__device__ __forceinline__ float4 shfl4(float4 v, int lane) {
-  return make_float4(__shfl_sync(0xffffffffu, v.x, lane),
-                     __shfl_sync(0xffffffffu, v.y, lane),
-                     __shfl_sync(0xffffffffu, v.z, lane),
-                     __shfl_sync(0xffffffffu, v.w, lane));
-}
-
 // out[:, l] = x[:, (l - s) mod 128] with s = 4 q + m in [0, 128): one warp
-// per row, one 16-byte vector a lane. Lane i writes out[:, 4i, 4i + 4):
-// the last m elements of the vector of lane (i - q - 1) mod 32 and the
-// first 4 - m of lane (i - q) mod 32's; m is the same in the whole warp.
+// per row, one 16-byte vector a lane; lane i writes out[:, 4i, 4i + 4)
+// (roll_vec).
 __global__ void __launch_bounds__(kRollWarps * 32)
 roll128_kernel(const float4* __restrict__ x, float4* __restrict__ out,
                int rows, int q, int m) {
@@ -713,16 +783,7 @@ roll128_kernel(const float4* __restrict__ x, float4* __restrict__ out,
   if (row >= rows) return;   // the whole warp
   const int lane = threadIdx.x & 31;
   const size_t i = static_cast<size_t>(row) * 32 + lane;
-  const float4 v = x[i];
-  const float4 hi = shfl4(v, (lane - q) & 31);
-  float4 r = hi;
-  if (m != 0) {
-    const float4 lo = shfl4(v, (lane - q - 1) & 31);
-    r = m == 1 ? make_float4(lo.w, hi.x, hi.y, hi.z)
-        : m == 2 ? make_float4(lo.z, lo.w, hi.x, hi.y)
-                 : make_float4(lo.y, lo.z, lo.w, hi.x);
-  }
-  out[i] = r;
+  out[i] = roll_vec(x[i], lane, q, m);
 }
 
 // out[r, l] = x[r, (l - s) mod C] with s in [0, C), any C: one thread per
@@ -793,15 +854,40 @@ __global__ void store16_kernel(const float* __restrict__ x,
   out[e] = v;
 }
 
-// ((roll 1 + roll 15) + roll 16) + roll 48
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// ((roll 1 + roll 15) + roll 16) + roll 48 of 128-lane rows, the plain
+// version's order: one warp per row as roll128_kernel, one load, the four
+// rolls by roll_vec at s = 4 q + m (1 = 4*0 + 1, 15 = 4*3 + 3, 16 = 4*4,
+// 48 = 4*12), one store
+__global__ void __launch_bounds__(kRollWarps * 32)
+rolls_sum128_kernel(const float4* __restrict__ x, float4* __restrict__ out,
+                    int rows) {
+  const int row = blockIdx.x * kRollWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;   // the whole warp
+  const int lane = threadIdx.x & 31;
+  const size_t i = static_cast<size_t>(row) * 32 + lane;
+  const float4 v = x[i];
+  out[i] = add4(add4(add4(roll_vec(v, lane, 0, 1), roll_vec(v, lane, 3, 3)),
+                     roll_vec(v, lane, 4, 0)),
+                roll_vec(v, lane, 12, 0));
+}
+
+// the same for any C: one thread a lane along the grid's x, its four
+// source lanes by 32-bit floor mods once, rows along the grid's y
 __global__ void rolls_sum_kernel(const float* __restrict__ x,
-                                 float* __restrict__ out, int C, long long n) {
-  const long long e = tid();
-  if (e >= n) return;
-  const float* r = x + (e / C) * C;
-  const int l = static_cast<int>(e % C);
-  out[e] = ((r[floor_mod(l - 1, C)] + r[floor_mod(l - 15, C)])
-            + r[floor_mod(l - 16, C)]) + r[floor_mod(l - 48, C)];
+                                 float* __restrict__ out, int rows, int C) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= C) return;
+  const int a = floor_mod32(l - 1, C), b = floor_mod32(l - 15, C);
+  const int c = floor_mod32(l - 16, C), d = floor_mod32(l - 48, C);
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const size_t row = static_cast<size_t>(r) * C;
+    const float* v = x + row;
+    out[row + l] = ((v[a] + v[b]) + v[c]) + v[d];
+  }
 }
 
 // out[:, l] = x[:, l] + x[:, (l - 16) mod C] for l < 16, else 0
@@ -970,6 +1056,31 @@ int launch_rows_sum(const void* table, const int* idx, void* lm, int P,
   return static_cast<int>(cudaGetLastError());
 }
 
+inline bool aligned16(const void* a, const void* b,
+                      const void* c = nullptr) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c)) & 15) == 0;
+}
+
+struct Shape {
+  dim3 grid, block;
+};
+
+// one warp a row of 128 lanes, at most ``warps`` rows a block
+inline Shape warp_rows(long long rows, int warps) {
+  return {dim3(static_cast<unsigned>((rows + warps - 1) / warps)),
+          dim3(static_cast<unsigned>(rows < warps ? rows : warps) * 32)};
+}
+
+// the lane loops: one thread a lane along the grid's x, at most 65,535 row
+// blocks along its y, each striding over the rest
+inline Shape lane_loop(int C, long long rows) {
+  const int threads = C < kThreads ? (C + 31) / 32 * 32 : kThreads;
+  return {dim3((C + threads - 1) / threads,
+               static_cast<unsigned>(rows < 65535 ? rows : 65535)),
+          dim3(threads)};
+}
+
 }  // namespace
 
 #define STREAM static_cast<cudaStream_t>(stream)
@@ -994,9 +1105,7 @@ extern "C" int sf_probe_gather_smem(const void* table, int n_table,
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = 16 + (reinterpret_cast<uintptr_t>(table) & 15) +
                       static_cast<size_t>(n_table) * 4;
-  const int vec_idx =
-      ((reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(out))
-       & 15) == 0;
+  const int vec_idx = aligned16(idx, out);
   // one index vector a thread, on no more blocks than that fills
   const long long need = (n + 4 * kGatherThreads - 1) / (4 * kGatherThreads);
   const unsigned blocks = static_cast<unsigned>(
@@ -1147,14 +1256,26 @@ extern "C" int sf_probe_gather_rows_sum(const void* table, const void* idx,
                                          inner, n_valid, STREAM);
 }
 
-// P7: table (R, C) f32, idx (R, C) int32, out (R, C).
+// P7: table (R, C) f32, idx (R, C) int32, out (R, C); C == 128 with table,
+// idx and out 16-byte aligned takes a warp a row, anything else the lane
+// loop.
 extern "C" int sf_probe_take_lanes(const void* table, const void* idx,
                                    void* out, int C, long long n,
                                    void* stream) {
-  return launch_flat(take_lanes_kernel, n, STREAM,
-                     static_cast<const float*>(table),
-                     static_cast<const int*>(idx), static_cast<float*>(out),
-                     C);
+  if (n == 0) return 0;
+  const long long rows = n / C;
+  if (C == 128 && aligned16(table, idx, out)) {
+    const Shape k = warp_rows(rows, kTakeWarps);
+    take_lanes128_kernel<<<k.grid, k.block, 0, STREAM>>>(
+        static_cast<const float4*>(table), static_cast<const int4*>(idx),
+        static_cast<float4*>(out), static_cast<int>(rows));
+  } else {
+    const Shape k = lane_loop(C, rows);
+    take_lanes_kernel<<<k.grid, k.block, 0, STREAM>>>(
+        static_cast<const float*>(table), static_cast<const int*>(idx),
+        static_cast<float*>(out), static_cast<int>(rows), C);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // P8 bodies, on n = R * C elements.
@@ -1177,24 +1298,17 @@ extern "C" int sf_probe_roll_lanes(const void* x, void* out, int C, int shift,
                                    long long n, void* stream) {
   const long long rows = n / C;
   if (rows == 0) return 0;
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out))
-       & 15) == 0;
+  const bool aligned = aligned16(x, out);
   if (C == 128 && aligned) {
     const int s = shift & 127;   // the floor mod, 128 a power of two
-    const int warps = rows < kRollWarps ? static_cast<int>(rows)
-                                        : kRollWarps;
-    roll128_kernel<<<static_cast<unsigned>((rows + kRollWarps - 1)
-                                           / kRollWarps),
-                     warps * 32, 0, STREAM>>>(
+    const Shape k = warp_rows(rows, kRollWarps);
+    roll128_kernel<<<k.grid, k.block, 0, STREAM>>>(
         static_cast<const float4*>(x), static_cast<float4*>(out),
         static_cast<int>(rows), s >> 2, s & 3);
   } else {
     const int s = ((shift % C) + C) % C;
-    const int threads = C < kThreads ? (C + 31) / 32 * 32 : kThreads;
-    const dim3 grid((C + threads - 1) / threads,
-                    static_cast<unsigned>(rows < 65535 ? rows : 65535));
-    roll_lanes_kernel<<<grid, threads, 0, STREAM>>>(
+    const Shape k = lane_loop(C, rows);
+    roll_lanes_kernel<<<k.grid, k.block, 0, STREAM>>>(
         static_cast<const float*>(x), static_cast<float*>(out),
         static_cast<int>(rows), C, s);
   }
@@ -1234,11 +1348,24 @@ extern "C" int sf_probe_store16(const void* x, void* out, int C, long long n,
                      static_cast<float*>(out), C);
 }
 
+// x and out (n / C, C); C == 128 with x and out 16-byte aligned takes the
+// warp-shuffle kernel, anything else the lane loop.
 extern "C" int sf_probe_rolls_sum(const void* x, void* out, int C,
                                   long long n, void* stream) {
-  return launch_flat(rolls_sum_kernel, n, STREAM,
-                     static_cast<const float*>(x), static_cast<float*>(out),
-                     C);
+  const long long rows = n / C;
+  if (rows == 0) return 0;
+  if (C == 128 && aligned16(x, out)) {
+    const Shape k = warp_rows(rows, kRollWarps);
+    rolls_sum128_kernel<<<k.grid, k.block, 0, STREAM>>>(
+        static_cast<const float4*>(x), static_cast<float4*>(out),
+        static_cast<int>(rows));
+  } else {
+    const Shape k = lane_loop(C, rows);
+    rolls_sum_kernel<<<k.grid, k.block, 0, STREAM>>>(
+        static_cast<const float*>(x), static_cast<float*>(out),
+        static_cast<int>(rows), C);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int sf_probe_narrow_pad(const void* x, void* out, int C,
@@ -1259,9 +1386,7 @@ extern "C" int sf_probe_regroup(const void* x, void* out, int D, long long n,
 // are 16-aligned, else one element.
 extern "C" int sf_probe_offset_copy(const void* x, void* out, int n_blocks,
                                     int block_elems, void* stream) {
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out))
-       & 15) == 0;
+  const bool aligned = aligned16(x, out);
   const int vec_units = aligned ? (block_elems + 3) / 4 : block_elems;
   const int threads = vec_units < kThreads
                           ? (vec_units + 31) / 32 * 32 : kThreads;

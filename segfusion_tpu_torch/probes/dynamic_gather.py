@@ -12,8 +12,11 @@ Port of ``tools/probe_dynamic_gather.py``:
 (``lane_major_width``: each lane's entries in a row of their own, ending
 with its first ``inner - 1`` entries again, padded to 16 bytes), so that
 one output's ``inner`` entries lie side by side, then sums each output's
-window from there (``rows_sum_route``). Each result is held against its
-plain version before it is timed.
+window from there (``rows_sum_route``). ``take_lanes`` takes a warp a
+128-lane row, staged in shared memory, where the table and index lie at
+16-byte-aligned addresses, and loops over the lanes otherwise
+(``take_lanes_route``). Each result is held against its plain version
+before it is timed.
 
     python -m segfusion_tpu_torch.probes.dynamic_gather [--device cpu]
 """
@@ -27,8 +30,8 @@ from ..device import resolve_device
 from . import _lib
 
 __all__ = ["gather_rows_sum", "gather_rows_sum_plain", "take_lanes",
-           "take_lanes_plain", "lane_major_width", "rows_sum_route", "main",
-           "launch_counts", "reset_launch_counts"]
+           "take_lanes_plain", "take_lanes_route", "lane_major_width",
+           "rows_sum_route", "main", "launch_counts", "reset_launch_counts"]
 
 INNER = 8
 # the term count the kernel reads as 16-byte vectors (kRowsSumVector in
@@ -97,9 +100,20 @@ def gather_rows_sum(table: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def take_lanes_route(table: torch.Tensor, idx: torch.Tensor) -> str:
+    """The form the lane take of the (R, C) ``table`` at ``idx`` takes on
+    the card: a warp a row, the row staged in shared memory, for 128 lanes
+    with the table and the index at 16-byte-aligned addresses (the output
+    always is), a loop over the lanes for anything else."""
+    return ("warp per row" if table.shape[-1] == 128
+            and table.data_ptr() % 16 == 0 and idx.data_ptr() % 16 == 0
+            else "lane loop")
+
+
 def take_lanes(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """P7 on the card (``take_lanes_kernel``): ``table`` (R, C) f32, ``idx``
-    (R, C) int32."""
+    """P7 on the card (``take_lanes128_kernel`` or ``take_lanes_kernel``,
+    as ``take_lanes_route`` names): ``table`` (R, C) f32, ``idx`` (R, C)
+    int32, any values (taken mod C)."""
     if _lib.on_cpu("take_lanes", table, idx):
         return take_lanes_plain(table, idx)
     _lib.require("take_lanes", "table", table, torch.float32, ndim=2)
@@ -155,7 +169,7 @@ def probe_axis1(dev):
     if not np.array_equal(got, np.take_along_axis(tab, idx, axis=1)):
         raise RuntimeError("take_lanes disagrees with numpy")
     ms = _lib.device_ms(lambda: take_lanes(table, index), dev)
-    print(f"  axis=1 (128,128): works, "
+    print(f"  axis=1 (128,128) [{take_lanes_route(table, index)}]: works, "
           f"{_lib.fmt(_lib.ns_per(ms, 128 * 128), '.3f', ' ns/elem')}",
           flush=True)
 

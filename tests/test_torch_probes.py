@@ -599,9 +599,10 @@ def test_rows_sum_model_is_the_plain_version(S, inner, u32):
         else "lane-major, loop over k")
 
 
-def test_take_lanes_matches_jax():
-    """probe_axis1 of tools/probe_dynamic_gather.py (:94-97), at (16, 128)."""
-    S = 16
+@pytest.mark.parametrize("S", [16, 19])
+def test_take_lanes_matches_jax(S):
+    """probe_axis1 of tools/probe_dynamic_gather.py (:94-97), at (S, 128),
+    in-range indices as ``promise_in_bounds`` requires."""
 
     def kernel(table_ref, idx_ref, out_ref):
         out_ref[:, :] = jnp.take_along_axis(
@@ -616,6 +617,72 @@ def test_take_lanes_matches_jax():
         interpret=True)(jnp.asarray(tab), jnp.asarray(idx))
     got = dynamic_gather.take_lanes(_t(tab), _t(idx))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_take_lanes_takes_any_int32_mod_128():
+    """The port's lane take on the CPU reads out-of-range int32 indices
+    (negative, >= 128, the extremes) modulo 128, as the kernel's
+    ``idx & 127`` does."""
+    tab = np.random.RandomState(0).randn(4, 128).astype(np.float32)
+    idx = np.random.RandomState(1).randint(-2 ** 31, 2 ** 31, (4, 128),
+                                           dtype=np.int64).astype(np.int32)
+    idx[0, :4] = [-1, 128, np.iinfo(np.int32).min, np.iinfo(np.int32).max]
+    got = dynamic_gather.take_lanes(_t(tab), _t(idx)).numpy()
+    np.testing.assert_array_equal(got, np.take_along_axis(tab, idx & 127, 1))
+    np.testing.assert_array_equal(got[0, :4], tab[0, [127, 0, 0, 127]])
+
+
+# take_lanes128_kernel's block (kTakeWarps in csrc/probes.cu;
+# test_roll_and_box_models_constants_match_the_kernel holds it to the source)
+TAKE_WARPS = 4
+
+
+def take_lanes_model(tab, idx):
+    """numpy model of take_lanes128_kernel (csrc/probes.cu), the lane take
+    of (R, 128) rows: ceil(R / TAKE_WARPS) blocks of min(R, TAKE_WARPS)
+    warps, warp w of block b on row b * TAKE_WARPS + w. Lane i loads the
+    row's 16-byte table vector i and index vector i and stores the table
+    vector into slot i of its warp's 128-float shared row; after
+    ``__syncwarp`` each of its four outputs is row[idx & 127] (the int32's
+    two's complement). Returns (out, how often each element of out is
+    written)."""
+    R, C = tab.shape
+    assert C == 128 and idx.dtype == np.int32
+    threads = min(R, TAKE_WARPS) * 32
+    blocks = -(-R // TAKE_WARPS)
+    tv, iv = tab.reshape(R, 32, 4), idx.reshape(R, 32, 4)
+    out = np.full((R, 32, 4), np.nan, np.float32)
+    writes = np.zeros((R, 32, 4), np.int64)
+    for b in range(blocks):
+        smem = np.full((TAKE_WARPS, 32, 4), np.nan, np.float32)
+        for w in range(threads // 32):
+            row = b * TAKE_WARPS + w
+            if row >= R:    # the whole warp leaves
+                continue
+            smem[w] = tv[row]       # every lane its slot, then __syncwarp
+            out[row] = smem[w].reshape(128)[iv[row] & 127]
+            writes[row] += 1
+    return out.reshape(R, C), writes.reshape(R, C)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8, 19, 128])
+def test_take_lanes_model_is_the_floor_mod_take(rows):
+    """Indices negative, >= 128 and at the int32 extremes: the model gives
+    ``take_along_axis`` at idx mod 128 and the port's plain version, every
+    output element written once, the rows of a last, partial block too."""
+    rng = np.random.RandomState(rows)
+    tab = rng.randn(rows, 128).astype(np.float32)
+    idx = rng.randint(-1000, 1000, (rows, 128)).astype(np.int32)
+    idx.flat[::5] = np.iinfo(np.int32).min
+    idx.flat[2::7] = np.iinfo(np.int32).max
+    idx.flat[3::11] = rng.randint(-2 ** 31, 2 ** 31, idx.flat[3::11].size,
+                                  dtype=np.int64)
+    out, writes = take_lanes_model(tab, idx)
+    want = np.take_along_axis(tab, idx % 128, 1)
+    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(
+        out, dynamic_gather.take_lanes_plain(_t(tab), _t(idx)).numpy())
+    assert (writes == 1).all()
 
 
 # -- P8 / P9 / P10 / P12 ------------------------------------------------------------
@@ -773,15 +840,84 @@ def test_roll_lanes_matches_jnp_roll(shape, shift):
         pallas_caps.roll_lanes(_t(x), 2 ** 31)
 
 
+# rolls_sum128_kernel's rolls: shift -> (q, m), shift = 4 q + m, in the
+# plain version's order (the kernel's roll_vec calls)
+ROLLS_SUM_QM = {1: (0, 1), 15: (3, 3), 16: (4, 0), 48: (12, 0)}
+
+
+def rolls_sum_model(x):
+    """numpy model of rolls_sum128_kernel (csrc/probes.cu): the warp
+    mapping of ``roll_model`` at shifts 1, 15, 16 and 48 (each its
+    ``roll_vec``, s = 4 q + m), summed in that order, one f32 rounding an
+    add. Returns (out, how often each element of out is written)."""
+    rolls, writes = [], None
+    for shift, (q, m) in ROLLS_SUM_QM.items():
+        assert shift == 4 * q + m
+        r, w = roll_model(x, shift)
+        rolls.append(r)
+        writes = w
+    a, b, c, d = rolls
+    return ((a + b) + c) + d, writes
+
+
+@pytest.mark.parametrize("rows", [1, 3, 16, 19])
+def test_rolls_sum_model_is_the_plain_version(rows):
+    """Standard normal rows: bit-equal to ``rolls_sum_plain``, every
+    output element written once."""
+    x = np.random.RandomState(rows).randn(rows, 128).astype(np.float32)
+    out, writes = rolls_sum_model(x)
+    np.testing.assert_array_equal(
+        out, pallas_caps2.rolls_sum_plain(_t(x)).numpy())
+    assert (writes == 1).all()
+
+
+@pytest.mark.parametrize("form", ["contiguous", "misaligned", "100 lanes"])
+def test_warp_routes_need_aligned_128_lanes(form):
+    """The lane take and the four-roll sum take their warp forms only for
+    128 lanes at a 16-byte-aligned address (a view 4 bytes past a boundary
+    and 100 lanes loop over the lanes); on the CPU both match JAX there
+    (``jnp.take_along_axis`` at idx mod C, the four ``jnp.roll``s)."""
+    R, C = 16, 100 if form == "100 lanes" else 128
+    shift = 1 if form == "misaligned" else 0
+    rng = np.random.RandomState(5)
+    flat = torch.tensor(rng.randn(R * C + shift).astype(np.float32))
+    x = flat[shift:].view(R, C)
+    raw = torch.tensor(rng.randint(-2 ** 31, 2 ** 31, R * C + shift,
+                                   dtype=np.int64).astype(np.int32))
+    idx = raw[shift:].view(R, C)
+    aligned = torch.tensor(rng.randint(0, C, (R, C)).astype(np.int32))
+    warp = form == "contiguous"
+    assert (x.data_ptr() % 16 == 0) == (form != "misaligned")
+    assert pallas_caps.roll_route(x) == ("warp shuffle" if warp
+                                         else "lane loop")
+    assert dynamic_gather.take_lanes_route(x, aligned) == (
+        "warp per row" if warp else "lane loop")
+    assert dynamic_gather.take_lanes_route(
+        torch.zeros((R, C)), idx) == ("warp per row" if warp
+                                      else "lane loop")
+    xn, ixn = x.numpy(), idx.numpy()
+    want = np.asarray(jnp.take_along_axis(jnp.asarray(xn),
+                                          jnp.asarray(ixn % C), axis=1))
+    np.testing.assert_array_equal(dynamic_gather.take_lanes(x, idx).numpy(),
+                                  want)
+    want = np.asarray(jnp.roll(xn, 1, 1) + jnp.roll(xn, 15, 1)
+                      + jnp.roll(xn, 16, 1) + jnp.roll(xn, 48, 1))
+    np.testing.assert_array_equal(pallas_caps2.rolls_sum(x).numpy(), want)
+
+
 def test_roll_and_box_models_constants_match_the_kernel():
-    """The models' block shapes are the kernels' constants, the launcher
-    takes the shuffle only for 16-byte-aligned 128-lane rows and reduces
-    the shift with ``& 127``, the box's TMA and unrolled side is the
+    """The models' block shapes are the kernels' constants, the launchers
+    take the shuffle (and the lane take its warp form) only for
+    16-byte-aligned 128-lane rows, the roll reduces the shift with
+    ``& 127`` and the four-roll sum calls the roll at the model's (q, m)
+    in the model's order, the lane take picks ``idx & 127`` from its
+    warp's shared row, the box's TMA and unrolled side is the
     probe's 64, and the TMA tile's box and expected bytes and the start
     that takes thread loads are the model's."""
     src = open(os.path.join(ROOT, "segfusion_tpu_torch", "csrc",
                             "probes.cu")).read()
     for name, value in (("kRollWarps", ROLL_WARPS),
+                        ("kTakeWarps", TAKE_WARPS),
                         ("kBoxThreads", BOX_THREADS),
                         ("kBoxUnrolled", BOX_UNROLLED)):
         assert f"constexpr int {name} = {value};" in src
@@ -791,6 +927,18 @@ def test_roll_and_box_models_constants_match_the_kernel():
     assert "if (z0 & 3) {" in src
     assert "if (C == 128 && aligned) {" in src
     assert "const int s = shift & 127;" in src
+    # the lane take: a warp's shared row, idx & 127, the same route rule
+    assert "__shared__ float4 smem[kTakeWarps][32];" in src
+    assert ("out[i] = make_float4(r[k.x & 127], r[k.y & 127], r[k.z & 127],\n"
+            "                       r[k.w & 127]);") in src
+    assert "if (C == 128 && aligned16(table, idx, out)) {" in src
+    # the four-roll sum: roll_vec at the model's (q, m), summed in order
+    assert "if (C == 128 && aligned16(x, out)) {" in src
+    q_m = [f"roll_vec(v, lane, {q}, {m})" for q, m in ROLLS_SUM_QM.values()]
+    assert ("out[i] = add4(add4(add4({}, {}),\n"
+            "                     {}),\n"
+            "                {});").format(*q_m) in src
+    assert "out[i] = roll_vec(x[i], lane, q, m);" in src
     assert ("if (B == kBoxUnrolled && SZ % 4 == 0 &&\n"
             "      reinterpret_cast<uintptr_t>(vol) % 16 == 0) {") in src
     assert random_access.BOX_UNROLLED == BOX_UNROLLED
