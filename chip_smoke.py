@@ -2,9 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (``segfusion_tpu_torch``) on one
 NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--probes]
 
-Phases, each of which raises (exit code 1, no result line) on failure:
+``--probes`` runs phases 1, 2 (``csrc/probes.cu`` alone, with ptxas's
+report of every kernel), the refusals of 3b and 3c, prints the probes'
+results and ends without the result line. Phases, each of which raises
+(exit code 1, no result line) on failure:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from ``segfusion_tpu_torch/csrc`` (nvcc,
@@ -20,16 +23,18 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 3b. the median kernel (K5) against its plain version on a 448^3 uint8
    label volume (30 classes) and a full-byte one, sizes 5 and 3:
    bit-exact; times and voxels/s; bit-exact at the ragged shapes too;
-   then K5's and P4's wrappers refusing a wrong dtype, size or bin count;
+   then K5's and P4's wrappers refusing a wrong dtype, size or bin count,
+   and P3's device-memory launcher 2^31 indices;
 3c. the launch floor (an empty kernel of ``csrc/probes.cu``, printed as
    ``launch_floor_ms``), then the probe kernels
    (``segfusion_tpu_torch/probes``, ``csrc/probes.cu``, the ports of the
    Pallas probes of ``tools/``) against their plain versions at the tools'
-   own sizes, the shared-memory gather, the offset copy, the box sum and
-   the lane roll, the four-roll sum and the lane take also at ragged,
-   misaligned and clamped inputs, other shifts and indices of any int32,
-   the gather-sum at other table sizes and term counts on indices of any
-   int32, and the window copy at windows past every face (each label
+   own sizes, the gathers, the offset copy, the box sum and the lane
+   roll, the four-roll sum, the narrow pad and the lane take also at
+   ragged, misaligned and clamped inputs, other shifts and indices of any
+   int32, the device-memory gather on the shared route's table (timed
+   only), the gather-sum at other table sizes and term counts on indices
+   of any int32, and the window copy at windows past every face (each label
    names the route the kernel takes): bit-exact, or within the stated
    tolerance (the scatter-add's atomics on random updates); each library
    call of a kernel-shaped result (``embedding_bag``, ``gather``, the
@@ -69,6 +74,7 @@ torch sees no CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import subprocess
@@ -447,7 +453,9 @@ def check_median(dev):
 
 def check_refusals(dev):
     """K5's and P4's wrappers refuse what their kernels do not take on a
-    CUDA tensor: a wrong dtype, an unknown size, too many bins."""
+    CUDA tensor: a wrong dtype, an unknown size, too many bins; P3's
+    device-memory launcher refuses 2^31 indices (its index math is 32-bit)
+    before it launches."""
     vol = torch.zeros((8, 8, 8), dtype=torch.int32, device=dev)
     idx = torch.zeros((1, 4), dtype=torch.int32, device=dev)
     upd = torch.ones((1, 4), device=dev)
@@ -460,6 +468,10 @@ def check_refusals(dev):
         ("scatter_add oversize", ValueError,
          lambda: random_access.scatter_add(
              idx, upd, random_access.scatter_add_max_bins() + 1)),
+        ("gather_global 2^31 indices", RuntimeError,
+         lambda: probe_lib.launch("sf_probe_gather_global",
+                                  "gather_global_kernel", dev, upd, 4, idx,
+                                  upd, 1 << 31)),
     ]
     for what, error, call in cases:
         try:
@@ -583,6 +595,29 @@ def gather_cases(dev, g):
             lambda t=t, ix=ix: ra.gather_plain(t, ix),
             lambda t=t, ix=ix.long(): torch.take(t, ix),
             4 * touched(ix.long(), size) + 8 * n, n))
+    # the device-memory route at 64^3 on 999 indices (a scalar tail of 3)
+    # and on a view 4 bytes past a 16-byte boundary (all scalar); then,
+    # for measurement only, its kernel on the 32^3 table that take
+    # gathers from shared memory (beside the shared route's case above)
+    t = torch.randn((1, 64 ** 3), generator=g, device=dev)
+    for count, m_idx in ((999, 0), (n, 1)):
+        ix = randint(64 ** 3, count + m_idx)[m_idx:][None]
+        cases.append(Case(
+            f"take {64 ** 3} table ({ra.take_route(t)}), {count} indices"
+            f"{' (misaligned view)' * m_idx}", None,
+            lambda t=t, ix=ix: ra.take(t, ix),
+            lambda t=t, ix=ix: ra.gather_plain(t, ix),
+            lambda t=t, ix=ix.long(): torch.take(t, ix),
+            4 * touched(ix.long(), 64 ** 3) + 8 * count, count))
+    t = torch.randn((1, 32 ** 3), generator=g, device=dev)
+    ix = randint(32 ** 3, n // 128, 128)
+    cases.append(Case(
+        f"take {32 ** 3} table through the device-memory kernel "
+        "(measurement only)", None,
+        lambda t=t, ix=ix: ra._take_device_memory(t, ix),
+        lambda t=t, ix=ix: ra.gather_plain(t, ix),
+        lambda t=t, ix=ix.long(): torch.take(t, ix),
+        4 * touched(ix.long(), 32 ** 3) + 8 * n, n))
     bins = 32 ** 3
     idx = randint(bins, 1, n)
     acc = torch.zeros(bins, device=dev)
@@ -829,24 +864,29 @@ def lane_cases(dev, g):
         (sd.roll1, x8, lambda: torch.roll(x8, 1, 1), 2 * n8),
     ]
     plain = c1.PLAIN | c2.PLAIN | {sd.roll1: sd.roll1_plain}
-    rolls = (c1.roll64, sd.roll1, c2.rolls_sum)
+    rolls = (c1.roll64, sd.roll1, c2.rolls_sum, c2.narrow_pad)
     cases = [Case(f"{fn.__name__} {tuple(x.shape)}"
                   + (f" [{c1.roll_route(x)}]" if fn in rolls else ""),
                   fn.__name__, lambda fn=fn, x=x: fn(x),
                   lambda fn=fn, x=x: plain[fn](x), lib, nbytes,
                   check_library=lib is not None)
              for fn, x, lib, nbytes in table]
-    # rolls_sum at 3 and 19 rows, and on the lane loop's inputs: a view 4
-    # bytes past a 16-byte boundary and 100 lanes
+    # rolls_sum and narrow_pad at 3 and 19 rows, and on the lane loop's
+    # inputs: a view 4 bytes past a 16-byte boundary and 100 lanes
+    # (narrow_pad reads lanes 0-15 and their 16 sources)
     mis16 = torch.randn(16 * 128 + 1, generator=g, device=dev)[1:] \
         .reshape(16, 128)
     for x in (torch.randn((3, 128), generator=g, device=dev),
               torch.randn((19, 128), generator=g, device=dev), mis16,
               torch.randn((8, 100), generator=g, device=dev)):
-        cases.append(Case(
-            f"rolls_sum {tuple(x.shape)}{' (misaligned view)' * (x is mis16)}"
-            f" [{c1.roll_route(x)}]", None, lambda x=x: c2.rolls_sum(x),
-            lambda x=x: c2.rolls_sum_plain(x), None, 2 * x.numel() * 4))
+        rows, C = x.shape
+        for fn, nbytes in ((c2.rolls_sum, 2 * x.numel() * 4),
+                           (c2.narrow_pad, rows * 32 * 4 + x.numel() * 4)):
+            cases.append(Case(
+                f"{fn.__name__} {tuple(x.shape)}"
+                f"{' (misaligned view)' * (x is mis16)} [{c1.roll_route(x)}]",
+                None, lambda fn=fn, x=x: fn(x),
+                lambda fn=fn, x=x: c2.PLAIN[fn](x), None, nbytes))
     # the lane roll at shifts 3 and -5, and on the lane loop's inputs: 100
     # lanes and a view 4 bytes past a 16-byte boundary
     mis8 = torch.randn(8 * 128 + 1, generator=g, device=dev)[1:] \
@@ -886,7 +926,7 @@ def probe_counts() -> dict:
 def check_probes(dev):
     """The launch floor, then every probe kernel against its plain version
     at the tools' sizes (and P2/P3/P5/P6/P7/P10/P11/P12 and P9's rolls_sum
-    at ragged, misaligned and clamped inputs);
+    and narrow_pad at ragged, misaligned and clamped inputs);
     returns the kernels-line results, then runs each probe's main once
     with the launch counts reset and returns those counts too.
 
@@ -1224,7 +1264,14 @@ def entry_point(dev):
     return counts
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU")
+    parser.add_argument("--probes", action="store_true",
+                        help="phases 1, 2 (csrc/probes.cu only, with each "
+                             "kernel's ptxas report) and 3c alone; prints "
+                             "the probes' results, and no result line")
+    probes_only = parser.parse_args(argv).probes
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -1239,10 +1286,11 @@ def main() -> int:
         "torch.backends.cuda.matmul.allow_tf32 = False")
 
     t0 = time.perf_counter()
-    builds = [lambda: _build.load_library("shadow_build"),
-              lambda: _build.load_library("median3d"),
-              lambda: _build.load_library("probes"),
-              lambda: _build.load_host_library(MCUBES_SOURCE)]
+    builds = [lambda: _build.load_library("probes")]
+    if not probes_only:
+        builds += [lambda: _build.load_library("shadow_build"),
+                   lambda: _build.load_library("median3d"),
+                   lambda: _build.load_host_library(MCUBES_SOURCE)]
     with ThreadPoolExecutor(len(builds)) as pool:
         infos = [info for _, info in pool.map(lambda b: b(), builds)]
     log(f"build: {len(infos)} libraries in parallel, "
@@ -1250,8 +1298,17 @@ def main() -> int:
     for info in infos:
         log(f"  {info['path']}: compiler {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or (probes_only and "Compiling entry" in line)):
                 log(f"    ptxas: {line.strip()}")
+
+    if probes_only:
+        check_refusals(dev)
+        probe_results, probe_launches = check_probes(dev)
+        print(json.dumps({"probes": probe_results,
+                          "launches": probe_launches}))
+        print(card)
+        return 0
 
     results = check_kernels(dev)
     results["median_filter3d"] = check_median(dev)

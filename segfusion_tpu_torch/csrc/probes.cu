@@ -55,7 +55,28 @@
 //    the opt-in less the barrier's 16-byte slot and 16 for the phase)
 //    takes P2's kernel; a larger one (64^3 f32, 1 MiB) is gathered
 //    straight from device memory, which the 50 MB L2 holds after the
-//    first touch.
+//    first touch (gather_global_kernel). Bound: the launch (the bytes,
+//    1 MiB of table reads at most and 0.5 MiB of indices and output,
+//    take 0.23 us at 3.35 TB/s), then two dependent round trips: the
+//    index, then the entry; and every 4-byte entry costs a 32-byte L2
+//    sector (2 MiB of sectors at 65,536 random indices). The first
+//    design took one thread an output (256 blocks of 256): a 4-byte index
+//    load, then one entry load, and 64-bit index math. Design: the same
+//    grid, all of it resident at once, with 32-bit index math (the
+//    compiler still makes both loads read-only, LDG.E.CONSTANT). The
+//    kernel takes kGlobalPer indices a thread (all its index loads, then
+//    all its table loads, then its stores; 16-byte index vectors and
+//    stores for a multiple of 4 on 16-byte-aligned idx and out), but one
+//    a thread is kept. Measured on the H100 (PERF.md; probes/forms.py
+//    sweeps the three constants, 24 forms): 4 indices a thread in 16-byte
+//    vectors, 64-256 threads a block, 0.06-0.2 us slower at the 64^3
+//    table, 8 a thread 0.07-0.5 us slower, 2 a thread as fast as 1 or
+//    slower; L2-only loads (ld.global.cg) never faster by more than
+//    0.004 us. A thread's loads in flight do not pace the kernel: the
+//    random sectors do (65,536 indices in order, or all one index, take
+//    ~0.44 us less), and then the two round trips. This form reads
+//    ~0.02 us above the first design at the probe's 65,536 indices and
+//    ~0.03 us below it at 999.
 // P4 scatter_add_kernel <- probe_random_access.py probe_pallas_scalar_rmw
 //    (:157, body :162). out = 0; out[idx[i]] += upd[i], accumulated in
 //    on-chip memory as the TPU probe accumulated in VMEM. Bound: bytes
@@ -153,7 +174,13 @@
 //    and four 64-bit floor mods. Design: P12's shuffle roll four times in
 //    one pass (rolls_sum128_kernel: a warp a 128-lane row, one load, the
 //    four rolls by roll_vec, one store); other widths and alignments take
-//    a lane loop with four 32-bit floor mods a thread.
+//    a lane loop with four 32-bit floor mods a thread. narrow_pad (k_narrow
+//    :52, x[:, :16] + roll(x, 16)[:, :16], zero-padded back to C) had the
+//    same first design (one 64-bit division and one 64-bit floor mod an
+//    element) and has the same bound (8 KiB at (16, 128)). Design: the
+//    same routes, one roll_vec by 16 (narrow_pad128_kernel: lanes 0-3 add
+//    the vectors of lanes 28-31, the others store zeros) and a lane loop
+//    with one 32-bit floor mod a thread.
 // P10 offset_copy_kernel <- probe_pallas_caps2.py main (:30, call :82, body
 //    k_dma :73): block k copies rows [k R, k R + R) at its dynamic offset
 //    and adds 1. Bound: the launch (16 KiB move in 0.01 us). Design: one
@@ -193,9 +220,9 @@
 //    rows at 16-byte-aligned addresses, one warp per row and one 16-byte
 //    vector a lane: each lane takes the vectors of two lanes by
 //    __shfl_sync and keeps elements by s mod 4 (the same in the whole
-//    warp), with no division (roll_vec, which P9's rolls_sum shares); any
-//    other width or alignment loops over the lanes (one thread a lane,
-//    rows along the grid's y).
+//    warp), with no division (roll_vec, which P9's rolls_sum and
+//    narrow_pad share); any other width or alignment loops over the lanes
+//    (one thread a lane, rows along the grid's y).
 // What bounds P8-P10 and P12 at the probes' sizes (4-64 KiB) is the launch
 // itself; they are there to hold the TPU bodies' semantics, not to be fast.
 // noop_kernel, an empty block, measures that launch floor on the card.
@@ -224,11 +251,6 @@ __device__ __forceinline__ long long tid() {
   return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
 }
 
-__device__ __forceinline__ int floor_mod(long long a, int m) {
-  long long r = a % m;
-  return static_cast<int>(r < 0 ? r + m : r);
-}
-
 // the floor mod of an int32 by m > 0 (INT32_MIN included), in 32 bits
 __device__ __forceinline__ int floor_mod32(int a, int m) {
   const int r = a % m;
@@ -240,8 +262,8 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 }
 
 // 128-lane rows, one warp a row, one 16-byte vector a lane (P7, P8 roll64,
-// P9 rolls_sum, P12): the warps of a block of the roll kernels and of the
-// lane take
+// P9 rolls_sum and narrow_pad, P12): the warps of a block of the roll
+// kernels and of the lane take
 constexpr int kRollWarps = 8;
 constexpr int kTakeWarps = 4;
 
@@ -420,14 +442,79 @@ gather_smem_kernel(const float* __restrict__ table, int n_table,
     out[i] = take1(tab, n_table, idx[i]);
 }
 
-__global__ void gather_global_kernel(const float* __restrict__ table,
-                                     int n_table, const int* __restrict__ idx,
-                                     float* __restrict__ out, long long n) {
-  const long long i = tid();
-  if (i >= n) return;
-  const int j = idx[i];
-  out[i] = static_cast<unsigned>(j) < static_cast<unsigned>(n_table)
-               ? table[j] : 0.0f;
+// P3's device-memory route: the indices a thread (a multiple of 4 takes
+// 16-byte vectors where idx and out are 16-byte aligned), the threads a
+// block, and the table loads' path (0: the compiler's, a read-only load
+// of a const __restrict__ pointer; 1: L2 only, ld.global.cg)
+constexpr int kGlobalPer = 1;
+constexpr int kGlobalThreads = 256;
+constexpr int kGlobalL2Only = 0;
+
+// a table entry; outside the table 0, as take1
+__device__ __forceinline__ float take1g(const float* __restrict__ tab,
+                                        unsigned n_table, int j) {
+  return static_cast<unsigned>(j) < n_table
+             ? (kGlobalL2Only ? __ldcg(tab + j) : tab[j])
+             : 0.0f;
+}
+
+// Where kGlobalPer is a multiple of 4 and idx and out are 16-byte aligned
+// (vec_idx), thread t of block b takes the kGlobalPer / 4 index vectors
+// b (kGlobalPer / 4) kGlobalThreads + k kGlobalThreads + t below n / 4:
+// all its index loads, then all its table loads, then its stores. Then
+// the scalar pass over [first, n), in the same order: thread t of block b
+// takes first + b kGlobalPer kGlobalThreads + k kGlobalThreads + t
+// (first = 4 (n / 4) after the vectors, so block 0's first threads take
+// the n mod 4 tail; else 0, all scalar). 32-bit index math: the launcher
+// refuses n >= 2^31.
+__global__ void __launch_bounds__(kGlobalThreads)
+gather_global_kernel(const float* __restrict__ table, int n_table,
+                     const int* __restrict__ idx, float* __restrict__ out,
+                     int n, int vec_idx) {
+  const unsigned nt = static_cast<unsigned>(n_table);
+  unsigned first = 0;
+  if (kGlobalPer % 4 == 0 && vec_idx) {
+    constexpr int kVecs = kGlobalPer < 4 ? 1 : kGlobalPer / 4;
+    const int nvec = n >> 2;
+    const int v0 = blockIdx.x * (kVecs * kGlobalThreads) + threadIdx.x;
+    const int4* idx4 = reinterpret_cast<const int4*>(idx);
+    float4* out4 = reinterpret_cast<float4*>(out);
+    int4 j[kVecs];
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      const int v = v0 + k * kGlobalThreads;
+      j[k] = v < nvec ? idx4[v] : make_int4(-1, -1, -1, -1);
+    }
+    float4 r[kVecs];
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k)
+      r[k] = make_float4(take1g(table, nt, j[k].x), take1g(table, nt, j[k].y),
+                         take1g(table, nt, j[k].z), take1g(table, nt, j[k].w));
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      const int v = v0 + k * kGlobalThreads;
+      if (v < nvec) out4[v] = r[k];
+    }
+    first = 4u * static_cast<unsigned>(nvec);
+  }
+  const unsigned i0 =
+      first + blockIdx.x * (kGlobalPer * kGlobalThreads) + threadIdx.x;
+  const unsigned un = static_cast<unsigned>(n);
+  if (i0 >= un) return;
+  int j[kGlobalPer];
+#pragma unroll
+  for (int k = 0; k < kGlobalPer; ++k) {
+    const unsigned i = i0 + k * kGlobalThreads;
+    j[k] = i < un ? idx[i] : -1;
+  }
+  float r[kGlobalPer];
+#pragma unroll
+  for (int k = 0; k < kGlobalPer; ++k) r[k] = take1g(table, nt, j[k]);
+#pragma unroll
+  for (int k = 0; k < kGlobalPer; ++k) {
+    const unsigned i = i0 + k * kGlobalThreads;
+    if (i < un) out[i] = r[k];
+  }
 }
 
 // -- P4 -----------------------------------------------------------------------
@@ -890,15 +977,34 @@ __global__ void rolls_sum_kernel(const float* __restrict__ x,
   }
 }
 
-// out[:, l] = x[:, l] + x[:, (l - 16) mod C] for l < 16, else 0
+// out[:, l] = x[:, l] + x[:, (l - 16) mod C] for l < 16, else 0, on
+// 128-lane rows: one warp per row as roll128_kernel, one load, the roll by
+// 16 (roll_vec at q = 4, m = 0: lane L takes lane (L - 4) & 31's vector,
+// so lanes 0-3 get lanes 28-31's), added on lanes 0-3 in the plain
+// version's order; lanes 4-31 store zeros
+__global__ void __launch_bounds__(kRollWarps * 32)
+narrow_pad128_kernel(const float4* __restrict__ x, float4* __restrict__ out,
+                     int rows) {
+  const int row = blockIdx.x * kRollWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;   // the whole warp
+  const int lane = threadIdx.x & 31;
+  const size_t i = static_cast<size_t>(row) * 32 + lane;
+  const float4 v = x[i];
+  const float4 r = roll_vec(v, lane, 4, 0);
+  out[i] = lane < 4 ? add4(v, r) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// the same for any C >= 16: one thread a lane along the grid's x, its
+// source lane by one 32-bit floor mod, rows along the grid's y
 __global__ void narrow_pad_kernel(const float* __restrict__ x,
-                                  float* __restrict__ out, int C,
-                                  long long n) {
-  const long long e = tid();
-  if (e >= n) return;
-  const float* r = x + (e / C) * C;
-  const int l = static_cast<int>(e % C);
-  out[e] = l < 16 ? r[l] + r[floor_mod(l - 16, C)] : 0.0f;
+                                  float* __restrict__ out, int rows, int C) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= C) return;
+  const int src = floor_mod32(l - 16, C);
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const size_t row = static_cast<size_t>(r) * C;
+    out[row + l] = l < 16 ? x[row + l] + x[row + src] : 0.0f;
+  }
 }
 
 // x (A, 2 H, D) -> out (A, H, D): out[a, h, d] = x[a, 2h, d] + 2 x[a, 2h+1, d]
@@ -1081,6 +1187,28 @@ inline Shape lane_loop(int C, long long rows) {
           dim3(threads)};
 }
 
+// P9's rolled bodies on x and out (n / C, C): C == 128 with x and out
+// 16-byte aligned takes the warp-shuffle kernel, anything else the lane
+// loop
+template <typename KWarp, typename KLoop>
+int launch_roll_routes(KWarp warp, KLoop loop, const void* x, void* out,
+                       int C, long long n, cudaStream_t s) {
+  const long long rows = n / C;
+  if (rows == 0) return 0;
+  if (C == 128 && aligned16(x, out)) {
+    const Shape k = warp_rows(rows, kRollWarps);
+    warp<<<k.grid, k.block, 0, s>>>(static_cast<const float4*>(x),
+                                    static_cast<float4*>(out),
+                                    static_cast<int>(rows));
+  } else {
+    const Shape k = lane_loop(C, rows);
+    loop<<<k.grid, k.block, 0, s>>>(static_cast<const float*>(x),
+                                    static_cast<float*>(out),
+                                    static_cast<int>(rows), C);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #define STREAM static_cast<cudaStream_t>(stream)
@@ -1116,13 +1244,21 @@ extern "C" int sf_probe_gather_smem(const void* table, int n_table,
   return static_cast<int>(cudaGetLastError());
 }
 
-// P3, table in device memory.
+// P3, table in device memory: one block of kGlobalThreads for every
+// kGlobalPer * kGlobalThreads indices (256 blocks at the probe's 65,536,
+// all resident at once); n < 2^31.
 extern "C" int sf_probe_gather_global(const void* table, int n_table,
                                       const void* idx, void* out, long long n,
                                       void* stream) {
-  return launch_flat(gather_global_kernel, n, STREAM,
-                     static_cast<const float*>(table), n_table,
-                     static_cast<const int*>(idx), static_cast<float*>(out));
+  if (n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  constexpr int per_block = kGlobalPer * kGlobalThreads;
+  gather_global_kernel<<<static_cast<unsigned>((n + per_block - 1) /
+                                               per_block),
+                         kGlobalThreads, 0, STREAM>>>(
+      static_cast<const float*>(table), n_table, static_cast<const int*>(idx),
+      static_cast<float*>(out), static_cast<int>(n), aligned16(idx, out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // P4: out (n_out,) f32, every bin written (no zeroing needed); one
@@ -1348,31 +1484,17 @@ extern "C" int sf_probe_store16(const void* x, void* out, int C, long long n,
                      static_cast<float*>(out), C);
 }
 
-// x and out (n / C, C); C == 128 with x and out 16-byte aligned takes the
-// warp-shuffle kernel, anything else the lane loop.
 extern "C" int sf_probe_rolls_sum(const void* x, void* out, int C,
                                   long long n, void* stream) {
-  const long long rows = n / C;
-  if (rows == 0) return 0;
-  if (C == 128 && aligned16(x, out)) {
-    const Shape k = warp_rows(rows, kRollWarps);
-    rolls_sum128_kernel<<<k.grid, k.block, 0, STREAM>>>(
-        static_cast<const float4*>(x), static_cast<float4*>(out),
-        static_cast<int>(rows));
-  } else {
-    const Shape k = lane_loop(C, rows);
-    rolls_sum_kernel<<<k.grid, k.block, 0, STREAM>>>(
-        static_cast<const float*>(x), static_cast<float*>(out),
-        static_cast<int>(rows), C);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_roll_routes(rolls_sum128_kernel, rolls_sum_kernel, x, out,
+                            C, n, STREAM);
 }
 
+// C >= 16
 extern "C" int sf_probe_narrow_pad(const void* x, void* out, int C,
                                    long long n, void* stream) {
-  return launch_flat(narrow_pad_kernel, n, STREAM,
-                     static_cast<const float*>(x), static_cast<float*>(out),
-                     C);
+  return launch_roll_routes(narrow_pad128_kernel, narrow_pad_kernel, x, out,
+                            C, n, STREAM);
 }
 
 extern "C" int sf_probe_regroup(const void* x, void* out, int D, long long n,

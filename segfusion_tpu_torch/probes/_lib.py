@@ -52,15 +52,20 @@ _SIGNATURES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
-def library():
-    """``csrc/probes.cu``, built at first use, with its signatures."""
-    lib, _ = _build.load_library("probes")
+def bind(lib):
+    """Declare the launchers' signatures on ``lib``, a build of
+    ``csrc/probes.cu``; returns ``lib``."""
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = [*args, _P]
         fn.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library():
+    """``csrc/probes.cu``, built at first use, with its signatures."""
+    return bind(_build.load_library("probes")[0])
 
 
 def launch(launcher: str, kernel: str, device, *args):

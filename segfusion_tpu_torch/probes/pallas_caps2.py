@@ -16,9 +16,10 @@ Port of ``tools/probe_pallas_caps2.py``: the four bodies of its ``tryk``
 | offset_copy | k_dma :73, block k copies rows [8k, 8k + 8) plus 1        |
 
 Rolls have ``jnp.roll``'s direction: ``roll(x, s)[:, l] = x[:, l - s]``.
-``rolls_sum`` takes the lane roll's two forms on the card: a warp shuffle
-for 128-lane rows at a 16-byte-aligned address, a loop over the lanes for
-anything else (``pallas_caps.roll_route`` names the one it takes).
+``rolls_sum`` and ``narrow_pad`` take the lane roll's two forms on the
+card: a warp shuffle for 128-lane rows at a 16-byte-aligned address, a
+loop over the lanes for anything else (``pallas_caps.roll_route`` names
+the one they take).
 
     python -m segfusion_tpu_torch.probes.pallas_caps2 [--device cpu]
 """

@@ -124,6 +124,19 @@ def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _take_device_memory(table: torch.Tensor, idx: torch.Tensor
+                        ) -> torch.Tensor:
+    """``take``'s device-memory kernel on any table, a shared-route one
+    too: a measurement of the two routes on one table, which ``take``
+    itself never makes (its route is ``take_route``'s)."""
+    if _lib.on_cpu("take", table, idx):
+        return gather_plain(table, idx)
+    _check_gather("take", table, idx)
+    out = _launch_gather(table, idx, smem=False)
+    take.launches += 1
+    return out
+
+
 # P4's thread-block cluster (kCluster in csrc/probes.cu): 16 blocks, each
 # holding a slice of the bins, a 32 KiB stage (4 updates for each of its
 # 1,024 threads, 8 bytes each) and 4 x 16 bucket counts and starts in its

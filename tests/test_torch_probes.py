@@ -52,10 +52,10 @@ import probe_shadow_variants  # noqa: E402
 
 from segfusion_tpu.ops.pallas import shadow_build as jsb  # noqa: E402
 from segfusion_tpu_torch.ops.rowvol import RowLayout  # noqa: E402
-from segfusion_tpu_torch.probes import (dynamic_gather, pallas_caps,  # noqa
-                                        pallas_caps2, pallas_caps3,
-                                        random_access, shadow_debug,
-                                        shadow_variants)
+from segfusion_tpu_torch.probes import (dynamic_gather, forms,  # noqa
+                                        pallas_caps, pallas_caps2,
+                                        pallas_caps3, random_access,
+                                        shadow_debug, shadow_variants)
 
 
 def _t(a):
@@ -331,6 +331,137 @@ def test_gather_model_constants_match_the_kernel():
     assert GATHER_BLOCKS * GATHER_THREADS * 4 == 1 << 16
     assert gather_model(0, 512, 4 * GATHER_THREADS + 1)[0] == 2
     assert random_access.GATHER_SMEM_MAX_BYTES == _SMEM_BYTES - 32
+
+
+# gather_global_kernel's indices a thread and threads a block (csrc/probes.cu
+# constants; test_global_gather_model_constants_match_the_kernel holds them
+# to the source)
+GLOBAL_PER, GLOBAL_THREADS, GLOBAL_L2_ONLY = 1, 256, 0
+H100_SMS = 132   # streaming multiprocessors
+
+
+def _take_or_zero(tab, j):
+    """tab[j], 0 where the unsigned compare puts j outside the table."""
+    inside = j.astype(np.uint32) < tab.size
+    return np.where(inside, tab[np.where(inside, j, 0)], np.float32(0))
+
+
+def global_gather_model(table, idx, vec_idx=True, per=GLOBAL_PER,
+                        threads=GLOBAL_THREADS):
+    """numpy model of gather_global_kernel (csrc/probes.cu), P3's
+    device-memory route, built with ``per`` indices a thread (kGlobalPer)
+    and ``threads`` a block (kGlobalThreads): ceil(n / (per threads))
+    blocks; where ``per`` is a multiple of 4 and idx and out are 16-byte
+    aligned (``vec_idx``), thread t of block b takes the per / 4 index
+    vectors b (per / 4) threads + k threads + t below n / 4, then the
+    scalar pass over [first, n) takes first + b per threads + k threads +
+    t (first: 4 (n / 4) after the vectors, else 0); an index outside the
+    table reads 0. Returns (out shaped like idx, how often each output is
+    written, the blocks)."""
+    tab, flat = table.reshape(-1), idx.reshape(-1)
+    n = flat.size
+    blocks = -(-n // (per * threads))
+    out = np.full(n, np.nan, np.float32)
+    writes = np.zeros(n, np.int64)
+
+    def thread_items(k_max):
+        b, k, t = np.meshgrid(np.arange(blocks), np.arange(k_max),
+                              np.arange(threads), indexing="ij")
+        return (b * k_max * threads + k * threads + t).ravel()
+
+    first = 0
+    if per % 4 == 0 and vec_idx:
+        v = thread_items(per // 4)
+        v = v[v < n // 4]
+        lanes = (4 * v[:, None] + np.arange(4)).ravel()
+        np.add.at(writes, lanes, 1)
+        out[lanes] = _take_or_zero(tab, flat[lanes])
+        first = 4 * (n // 4)
+    i = first + thread_items(per)
+    i = i[i < n]
+    np.add.at(writes, i, 1)
+    out[i] = _take_or_zero(tab, flat[i])
+    return out.reshape(idx.shape), writes.reshape(idx.shape), blocks
+
+
+# the kernel's form and two that probes/forms.py builds (16-byte vectors)
+GLOBAL_FORMS = [(GLOBAL_PER, GLOBAL_THREADS), (4, 128), (8, 64)]
+
+
+@pytest.mark.parametrize("per,threads", GLOBAL_FORMS,
+                         ids=[f"{p}x{t}" for p, t in GLOBAL_FORMS])
+@pytest.mark.parametrize("vec", [True, False], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("n", [1 << 16, 999, 5, 1])
+def test_global_gather_model_is_the_take(n, vec, per, threads):
+    """The vector body, the scalar tail and the all-scalar pass of a
+    misaligned view write every output once; on in-range indices into the
+    probe's 64^3 table the result is the tool's vector take (interpret
+    mode), and an index outside the table (negative, past the end, the
+    int32 extremes) reads 0."""
+    rng = np.random.RandomState(n)
+    nvox = 64 ** 3
+    table = rng.randn(1, nvox).astype(np.float32)
+    idx = rng.randint(0, nvox, (1, n)).astype(np.int32)
+    out, writes, blocks = global_gather_model(table, idx, vec, per, threads)
+    assert (writes == 1).all()
+    assert blocks == -(-n // (per * threads))
+    np.testing.assert_array_equal(out, np.asarray(_jax_vector_take(table,
+                                                                   idx)))
+    bad = idx.copy()
+    outside = np.array([-1, nvox, -2 ** 31, 2 ** 31 - 1], np.int32)
+    where = rng.choice(n, min(n, outside.size), replace=False)
+    bad[0, where] = outside[:where.size]
+    out, writes, _ = global_gather_model(table, bad, vec, per, threads)
+    assert (writes == 1).all()
+    assert (out[0, where] == 0).all()
+    keep = np.setdiff1d(np.arange(n), where)
+    np.testing.assert_array_equal(out[0, keep], table[0, bad[0, keep]])
+
+
+def test_global_gather_model_constants_match_the_kernel():
+    """The model's indices a thread, block and cache path are the kernel's
+    constants; the probe's 65,536 indices take one wave (every block
+    resident at once: at most 2,048 threads and 32 blocks an SM); the
+    launcher refuses 2^31 indices (32-bit index math), and the
+    kernel takes 16-byte vectors only for a multiple of 4 indices a thread
+    where idx and out are 16-byte aligned."""
+    src = open(os.path.join(ROOT, "segfusion_tpu_torch", "csrc",
+                            "probes.cu")).read()
+    assert f"constexpr int kGlobalPer = {GLOBAL_PER};" in src
+    assert f"constexpr int kGlobalThreads = {GLOBAL_THREADS};" in src
+    assert f"constexpr int kGlobalL2Only = {GLOBAL_L2_ONLY};" in src
+    blocks = global_gather_model(np.zeros((1, 8), np.float32),
+                                 np.zeros((1, 1 << 16), np.int32))[2]
+    assert blocks <= H100_SMS * min(32, 2048 // GLOBAL_THREADS)
+    launcher = src[src.index('extern "C" int sf_probe_gather_global('):]
+    launcher = launcher[:launcher.index("\n}\n")]
+    assert ("if (n >= (1LL << 31)) return static_cast<int>("
+            "cudaErrorInvalidValue);") in launcher
+    assert "aligned16(idx, out)" in launcher
+    assert "if (kGlobalPer % 4 == 0 && vec_idx) {" in src
+    assert "kGlobalThreads, 0, STREAM>>>" in launcher
+
+
+def test_gather_forms_change_only_their_constants():
+    """``probes.forms`` builds the device-memory gather at every combination
+    of its constants, the kernel's own among them: each form's source differs
+    from ``csrc/probes.cu`` in those constants' lines alone, and a name
+    the source does not define once raises."""
+    src = open(os.path.join(ROOT, "segfusion_tpu_torch", "csrc",
+                            "probes.cu")).read()
+    every = forms.forms()
+    assert len(every) == 24
+    assert {"kGlobalPer": GLOBAL_PER, "kGlobalThreads": GLOBAL_THREADS,
+            "kGlobalL2Only": GLOBAL_L2_ONLY} in every
+    for values in every:
+        got = forms.form_source(src, values).splitlines()
+        changed = {b for a, b in zip(src.splitlines(), got) if a != b}
+        assert len(got) == len(src.splitlines())
+        assert changed == {f"constexpr int {k} = {v};"
+                           for k, v in values.items()
+                           if f"constexpr int {k} = {v};" not in src}
+    with pytest.raises(ValueError, match="defined 0 times"):
+        forms.form_source(src, {"kNoSuchConstant": 1})
 
 
 @pytest.mark.parametrize("updates", ["ones", "normal"])
@@ -871,12 +1002,83 @@ def test_rolls_sum_model_is_the_plain_version(rows):
     assert (writes == 1).all()
 
 
+def _jax_narrow(x):
+    """tools/probe_pallas_caps2.py k_narrow (:52-56) at any width C >= 16:
+    x[:, :16] + roll(x, 16)[:, :16], zero-padded back to C lanes
+    (pltpu.roll has jnp.roll's direction: test_roll_direction_matches_jax)."""
+    n = x[:, :16] + jnp.roll(x, 16, 1)[:, :16]
+    return np.asarray(jnp.pad(n, ((0, 0), (0, x.shape[1] - 16))))
+
+
+# narrow_pad128_kernel's roll: 16 = 4 q + m
+NARROW_QM = (4, 0)
+
+
+def narrow_pad_model(x):
+    """numpy model of narrow_pad128_kernel (csrc/probes.cu): the warp and
+    block mapping of ``roll_model``, lane L holding the row's 16-byte
+    vector L and taking lane (L - 4) & 31's (the roll by 16, s = 4 q + m
+    at NARROW_QM), lanes 0-3 storing their own vector plus that one, lanes
+    4-31 zeros. Returns (out, how often each element of out is written)."""
+    R, C = x.shape
+    q, m = NARROW_QM
+    assert C == 128 and 4 * q + m == 16 and m == 0
+    threads = min(R, ROLL_WARPS) * 32
+    blocks = -(-R // ROLL_WARPS)
+    vec = x.reshape(R, 32, 4)
+    out = np.full((R, 32, 4), np.nan, np.float32)
+    writes = np.zeros((R, 32, 4), np.int64)
+    lanes = np.arange(32)
+    for b in range(blocks):
+        for w in range(threads // 32):
+            row = b * ROLL_WARPS + w
+            if row >= R:
+                continue
+            r = vec[row, (lanes - q) & 31]
+            out[row] = np.where((lanes < 4)[:, None], vec[row] + r,
+                                np.float32(0))
+            writes[row] += 1
+    return out.reshape(R, C), writes.reshape(R, C)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 16, 19])
+def test_narrow_pad_model_is_the_plain_version(rows):
+    """Standard normal rows: bit-equal to ``narrow_pad_plain`` and to the
+    tool's k_narrow form in JAX, every output element written once."""
+    x = np.random.RandomState(rows).randn(rows, 128).astype(np.float32)
+    out, writes = narrow_pad_model(x)
+    np.testing.assert_array_equal(
+        out, pallas_caps2.narrow_pad_plain(_t(x)).numpy())
+    np.testing.assert_array_equal(out, _jax_narrow(x))
+    assert (writes == 1).all()
+
+
+def test_narrow_pad_model_constants_match_the_kernel():
+    """The launcher takes the warp form only for 16-byte-aligned 128-lane
+    rows, and the kernel rolls by the model's (q, m) and keeps lanes 0-3."""
+    src = open(os.path.join(ROOT, "segfusion_tpu_torch", "csrc",
+                            "probes.cu")).read()
+    routes = src[src.index("int launch_roll_routes("):]
+    routes = routes[:routes.index("\n}\n")]
+    assert "if (C == 128 && aligned16(x, out)) {" in routes
+    assert "warp_rows(rows, kRollWarps)" in routes
+    launcher = src[src.index('extern "C" int sf_probe_narrow_pad('):]
+    launcher = launcher[:launcher.index("\n}\n")]
+    assert ("launch_roll_routes(narrow_pad128_kernel, narrow_pad_kernel, "
+            "x, out,") in launcher
+    q, m = NARROW_QM
+    assert f"const float4 r = roll_vec(v, lane, {q}, {m});" in src
+    assert ("out[i] = lane < 4 ? add4(v, r) : make_float4(0.0f, 0.0f, 0.0f, "
+            "0.0f);") in src
+
+
 @pytest.mark.parametrize("form", ["contiguous", "misaligned", "100 lanes"])
 def test_warp_routes_need_aligned_128_lanes(form):
-    """The lane take and the four-roll sum take their warp forms only for
-    128 lanes at a 16-byte-aligned address (a view 4 bytes past a boundary
-    and 100 lanes loop over the lanes); on the CPU both match JAX there
-    (``jnp.take_along_axis`` at idx mod C, the four ``jnp.roll``s)."""
+    """The lane take, the four-roll sum and the narrow pad take their warp
+    forms only for 128 lanes at a 16-byte-aligned address (a view 4 bytes
+    past a boundary and 100 lanes loop over the lanes); on the CPU all
+    three match JAX there (``jnp.take_along_axis`` at idx mod C, the four
+    ``jnp.roll``s, the tool's k_narrow form)."""
     R, C = 16, 100 if form == "100 lanes" else 128
     shift = 1 if form == "misaligned" else 0
     rng = np.random.RandomState(5)
@@ -903,6 +1105,8 @@ def test_warp_routes_need_aligned_128_lanes(form):
     want = np.asarray(jnp.roll(xn, 1, 1) + jnp.roll(xn, 15, 1)
                       + jnp.roll(xn, 16, 1) + jnp.roll(xn, 48, 1))
     np.testing.assert_array_equal(pallas_caps2.rolls_sum(x).numpy(), want)
+    np.testing.assert_array_equal(pallas_caps2.narrow_pad(x).numpy(),
+                                  _jax_narrow(xn))
 
 
 def test_roll_and_box_models_constants_match_the_kernel():
@@ -1113,7 +1317,7 @@ def test_rows_sum_and_window_models_constants_match_the_kernel():
 
 @pytest.mark.parametrize("module", [
     "shadow_debug", "pallas_caps", "pallas_caps2", "dynamic_gather",
-    "pallas_caps3", "random_access"])
+    "pallas_caps3", "random_access", "forms"])
 def test_probe_main_runs_on_cpu(module, capsys):
     """Each probe's ``main(device="cpu")``: the plain versions, the tool's
     checks, and "not measured" in place of every time."""
