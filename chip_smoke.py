@@ -2,12 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``segfusion_tpu_torch``) on one
 NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--probes]
+    python3 chip_smoke.py
 
-``--probes`` runs phases 1, 2 (``csrc/probes.cu`` alone, with ptxas's
-report of every kernel), the refusals of 3b and 3c, prints the probes'
-results and ends without the result line. Phases, each of which raises
-(exit code 1, no result line) on failure:
+Phases, each of which raises (exit code 1, no result line) on failure:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from ``segfusion_tpu_torch/csrc`` (nvcc,
@@ -23,8 +20,7 @@ results and ends without the result line. Phases, each of which raises
 3b. the median kernel (K5) against its plain version on a 448^3 uint8
    label volume (30 classes) and a full-byte one, sizes 5 and 3:
    bit-exact; times and voxels/s; bit-exact at the ragged shapes too;
-   then K5's and P4's wrappers refusing a wrong dtype, size or bin count,
-   and P3's device-memory launcher 2^31 indices;
+   then K5's and P4's wrappers refusing a wrong dtype, size or bin count;
 3c. the launch floor (an empty kernel of ``csrc/probes.cu``, printed as
    ``launch_floor_ms``), then the probe kernels
    (``segfusion_tpu_torch/probes``, ``csrc/probes.cu``, the ports of the
@@ -74,7 +70,6 @@ torch sees no CUDA device.
 
 from __future__ import annotations
 
-import argparse
 import copy
 import json
 import subprocess
@@ -453,9 +448,7 @@ def check_median(dev):
 
 def check_refusals(dev):
     """K5's and P4's wrappers refuse what their kernels do not take on a
-    CUDA tensor: a wrong dtype, an unknown size, too many bins; P3's
-    device-memory launcher refuses 2^31 indices (its index math is 32-bit)
-    before it launches."""
+    CUDA tensor: a wrong dtype, an unknown size, too many bins."""
     vol = torch.zeros((8, 8, 8), dtype=torch.int32, device=dev)
     idx = torch.zeros((1, 4), dtype=torch.int32, device=dev)
     upd = torch.ones((1, 4), device=dev)
@@ -468,10 +461,6 @@ def check_refusals(dev):
         ("scatter_add oversize", ValueError,
          lambda: random_access.scatter_add(
              idx, upd, random_access.scatter_add_max_bins() + 1)),
-        ("gather_global 2^31 indices", RuntimeError,
-         lambda: probe_lib.launch("sf_probe_gather_global",
-                                  "gather_global_kernel", dev, upd, 4, idx,
-                                  upd, 1 << 31)),
     ]
     for what, error, call in cases:
         try:
@@ -595,10 +584,10 @@ def gather_cases(dev, g):
             lambda t=t, ix=ix: ra.gather_plain(t, ix),
             lambda t=t, ix=ix.long(): torch.take(t, ix),
             4 * touched(ix.long(), size) + 8 * n, n))
-    # the device-memory route at 64^3 on 999 indices (a scalar tail of 3)
-    # and on a view 4 bytes past a 16-byte boundary (all scalar); then,
-    # for measurement only, its kernel on the 32^3 table that take
-    # gathers from shared memory (beside the shared route's case above)
+    # the device-memory route at 64^3 on 999 indices and on an index view
+    # 4 bytes past a 16-byte boundary; then, for measurement only, its
+    # kernel on the 32^3 table that take gathers from shared memory
+    # (beside the shared route's case above)
     t = torch.randn((1, 64 ** 3), generator=g, device=dev)
     for count, m_idx in ((999, 0), (n, 1)):
         ix = randint(64 ** 3, count + m_idx)[m_idx:][None]
@@ -1264,14 +1253,7 @@ def entry_point(dev):
     return counts
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(
-        description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU")
-    parser.add_argument("--probes", action="store_true",
-                        help="phases 1, 2 (csrc/probes.cu only, with each "
-                             "kernel's ptxas report) and 3c alone; prints "
-                             "the probes' results, and no result line")
-    probes_only = parser.parse_args(argv).probes
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -1286,11 +1268,10 @@ def main(argv=None) -> int:
         "torch.backends.cuda.matmul.allow_tf32 = False")
 
     t0 = time.perf_counter()
-    builds = [lambda: _build.load_library("probes")]
-    if not probes_only:
-        builds += [lambda: _build.load_library("shadow_build"),
-                   lambda: _build.load_library("median3d"),
-                   lambda: _build.load_host_library(MCUBES_SOURCE)]
+    builds = [lambda: _build.load_library("shadow_build"),
+              lambda: _build.load_library("median3d"),
+              lambda: _build.load_library("probes"),
+              lambda: _build.load_host_library(MCUBES_SOURCE)]
     with ThreadPoolExecutor(len(builds)) as pool:
         infos = [info for _, info in pool.map(lambda b: b(), builds)]
     log(f"build: {len(infos)} libraries in parallel, "
@@ -1298,17 +1279,8 @@ def main(argv=None) -> int:
     for info in infos:
         log(f"  {info['path']}: compiler {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if ("registers" in line or "spill" in line
-                    or (probes_only and "Compiling entry" in line)):
+            if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
-
-    if probes_only:
-        check_refusals(dev)
-        probe_results, probe_launches = check_probes(dev)
-        print(json.dumps({"probes": probe_results,
-                          "launches": probe_launches}))
-        print(card)
-        return 0
 
     results = check_kernels(dev)
     results["median_filter3d"] = check_median(dev)

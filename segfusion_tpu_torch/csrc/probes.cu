@@ -59,24 +59,21 @@
 //    1 MiB of table reads at most and 0.5 MiB of indices and output,
 //    take 0.23 us at 3.35 TB/s), then two dependent round trips: the
 //    index, then the entry; and every 4-byte entry costs a 32-byte L2
-//    sector (2 MiB of sectors at 65,536 random indices). The first
-//    design took one thread an output (256 blocks of 256): a 4-byte index
-//    load, then one entry load, and 64-bit index math. Design: the same
-//    grid, all of it resident at once, with 32-bit index math (the
-//    compiler still makes both loads read-only, LDG.E.CONSTANT). The
-//    kernel takes kGlobalPer indices a thread (all its index loads, then
-//    all its table loads, then its stores; 16-byte index vectors and
-//    stores for a multiple of 4 on 16-byte-aligned idx and out), but one
-//    a thread is kept. Measured on the H100 (PERF.md; probes/forms.py
-//    sweeps the three constants, 24 forms): 4 indices a thread in 16-byte
-//    vectors, 64-256 threads a block, 0.06-0.2 us slower at the 64^3
-//    table, 8 a thread 0.07-0.5 us slower, 2 a thread as fast as 1 or
-//    slower; L2-only loads (ld.global.cg) never faster by more than
-//    0.004 us. A thread's loads in flight do not pace the kernel: the
-//    random sectors do (65,536 indices in order, or all one index, take
-//    ~0.44 us less), and then the two round trips. This form reads
-//    ~0.02 us above the first design at the probe's 65,536 indices and
-//    ~0.03 us below it at 999.
+//    sector (2 MiB of sectors at 65,536 random indices). Design: the
+//    first one, one thread an output (launch_flat: blocks of 256), one
+//    index load, then one read-only entry load (LDG.E.CONSTANT). A
+//    redesign was measured on the H100 (PERF.md) and dropped, 24 forms
+//    in all: 2, 4 or 8 indices a thread (all index loads, then all
+//    table loads, then the stores; 16-byte index vectors and stores for
+//    4 and 8), 64, 128 or 256 threads a block, L2-only table loads
+//    (ld.global.cg). At the 64^3 table 4 a thread read 0.06-0.2 us
+//    slower, 8 a thread 0.07-0.5 us, 2 as fast as 1 or slower, L2-only
+//    loads never faster by more than 0.004 us; 32-bit index math with
+//    an early exit past n read 0.01-0.02 us slower than this form at the
+//    probe's 65,536 indices (0.03 us faster at 999). A thread's loads in
+//    flight do not pace the kernel: the random sectors do (65,536
+//    indices in order, or all one index, take ~0.44 us less), then the
+//    two round trips.
 // P4 scatter_add_kernel <- probe_random_access.py probe_pallas_scalar_rmw
 //    (:157, body :162). out = 0; out[idx[i]] += upd[i], accumulated in
 //    on-chip memory as the TPU probe accumulated in VMEM. Bound: bytes
@@ -180,7 +177,8 @@
 //    element) and has the same bound (8 KiB at (16, 128)). Design: the
 //    same routes, one roll_vec by 16 (narrow_pad128_kernel: lanes 0-3 add
 //    the vectors of lanes 28-31, the others store zeros) and a lane loop
-//    with one 32-bit floor mod a thread.
+//    with one 32-bit floor mod a thread; 1.18 us at (16, 128) against the
+//    first design's 1.66 on the H100 (PERF.md), no other form tried.
 // P10 offset_copy_kernel <- probe_pallas_caps2.py main (:30, call :82, body
 //    k_dma :73): block k copies rows [k R, k R + R) at its dynamic offset
 //    and adds 1. Bound: the launch (16 KiB move in 0.01 us). Design: one
@@ -442,79 +440,14 @@ gather_smem_kernel(const float* __restrict__ table, int n_table,
     out[i] = take1(tab, n_table, idx[i]);
 }
 
-// P3's device-memory route: the indices a thread (a multiple of 4 takes
-// 16-byte vectors where idx and out are 16-byte aligned), the threads a
-// block, and the table loads' path (0: the compiler's, a read-only load
-// of a const __restrict__ pointer; 1: L2 only, ld.global.cg)
-constexpr int kGlobalPer = 1;
-constexpr int kGlobalThreads = 256;
-constexpr int kGlobalL2Only = 0;
-
-// a table entry; outside the table 0, as take1
-__device__ __forceinline__ float take1g(const float* __restrict__ tab,
-                                        unsigned n_table, int j) {
-  return static_cast<unsigned>(j) < n_table
-             ? (kGlobalL2Only ? __ldcg(tab + j) : tab[j])
-             : 0.0f;
-}
-
-// Where kGlobalPer is a multiple of 4 and idx and out are 16-byte aligned
-// (vec_idx), thread t of block b takes the kGlobalPer / 4 index vectors
-// b (kGlobalPer / 4) kGlobalThreads + k kGlobalThreads + t below n / 4:
-// all its index loads, then all its table loads, then its stores. Then
-// the scalar pass over [first, n), in the same order: thread t of block b
-// takes first + b kGlobalPer kGlobalThreads + k kGlobalThreads + t
-// (first = 4 (n / 4) after the vectors, so block 0's first threads take
-// the n mod 4 tail; else 0, all scalar). 32-bit index math: the launcher
-// refuses n >= 2^31.
-__global__ void __launch_bounds__(kGlobalThreads)
-gather_global_kernel(const float* __restrict__ table, int n_table,
-                     const int* __restrict__ idx, float* __restrict__ out,
-                     int n, int vec_idx) {
-  const unsigned nt = static_cast<unsigned>(n_table);
-  unsigned first = 0;
-  if (kGlobalPer % 4 == 0 && vec_idx) {
-    constexpr int kVecs = kGlobalPer < 4 ? 1 : kGlobalPer / 4;
-    const int nvec = n >> 2;
-    const int v0 = blockIdx.x * (kVecs * kGlobalThreads) + threadIdx.x;
-    const int4* idx4 = reinterpret_cast<const int4*>(idx);
-    float4* out4 = reinterpret_cast<float4*>(out);
-    int4 j[kVecs];
-#pragma unroll
-    for (int k = 0; k < kVecs; ++k) {
-      const int v = v0 + k * kGlobalThreads;
-      j[k] = v < nvec ? idx4[v] : make_int4(-1, -1, -1, -1);
-    }
-    float4 r[kVecs];
-#pragma unroll
-    for (int k = 0; k < kVecs; ++k)
-      r[k] = make_float4(take1g(table, nt, j[k].x), take1g(table, nt, j[k].y),
-                         take1g(table, nt, j[k].z), take1g(table, nt, j[k].w));
-#pragma unroll
-    for (int k = 0; k < kVecs; ++k) {
-      const int v = v0 + k * kGlobalThreads;
-      if (v < nvec) out4[v] = r[k];
-    }
-    first = 4u * static_cast<unsigned>(nvec);
-  }
-  const unsigned i0 =
-      first + blockIdx.x * (kGlobalPer * kGlobalThreads) + threadIdx.x;
-  const unsigned un = static_cast<unsigned>(n);
-  if (i0 >= un) return;
-  int j[kGlobalPer];
-#pragma unroll
-  for (int k = 0; k < kGlobalPer; ++k) {
-    const unsigned i = i0 + k * kGlobalThreads;
-    j[k] = i < un ? idx[i] : -1;
-  }
-  float r[kGlobalPer];
-#pragma unroll
-  for (int k = 0; k < kGlobalPer; ++k) r[k] = take1g(table, nt, j[k]);
-#pragma unroll
-  for (int k = 0; k < kGlobalPer; ++k) {
-    const unsigned i = i0 + k * kGlobalThreads;
-    if (i < un) out[i] = r[k];
-  }
+__global__ void gather_global_kernel(const float* __restrict__ table,
+                                     int n_table, const int* __restrict__ idx,
+                                     float* __restrict__ out, long long n) {
+  const long long i = tid();
+  if (i >= n) return;
+  const int j = idx[i];
+  out[i] = static_cast<unsigned>(j) < static_cast<unsigned>(n_table)
+               ? table[j] : 0.0f;
 }
 
 // -- P4 -----------------------------------------------------------------------
@@ -1244,21 +1177,13 @@ extern "C" int sf_probe_gather_smem(const void* table, int n_table,
   return static_cast<int>(cudaGetLastError());
 }
 
-// P3, table in device memory: one block of kGlobalThreads for every
-// kGlobalPer * kGlobalThreads indices (256 blocks at the probe's 65,536,
-// all resident at once); n < 2^31.
+// P3, table in device memory.
 extern "C" int sf_probe_gather_global(const void* table, int n_table,
                                       const void* idx, void* out, long long n,
                                       void* stream) {
-  if (n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  constexpr int per_block = kGlobalPer * kGlobalThreads;
-  gather_global_kernel<<<static_cast<unsigned>((n + per_block - 1) /
-                                               per_block),
-                         kGlobalThreads, 0, STREAM>>>(
-      static_cast<const float*>(table), n_table, static_cast<const int*>(idx),
-      static_cast<float*>(out), static_cast<int>(n), aligned16(idx, out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_flat(gather_global_kernel, n, STREAM,
+                     static_cast<const float*>(table), n_table,
+                     static_cast<const int*>(idx), static_cast<float*>(out));
 }
 
 // P4: out (n_out,) f32, every bin written (no zeroing needed); one

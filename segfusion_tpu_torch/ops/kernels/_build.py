@@ -20,8 +20,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "load_cuda_source", "load_host_library", "CSRC",
-           "BUILD_DIR"]
+__all__ = ["load_library", "load_host_library", "CSRC", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -77,13 +76,7 @@ def _build_and_load(source: Path, compiler: str, flags):
 def load_library(name: str):
     """Build (nvcc, sm_90a) and load ``csrc/<name>.cu``; ``(lib, info)``.
     The caller declares the entry points' ctypes signatures."""
-    return load_cuda_source(CSRC / f"{name}.cu")
-
-
-def load_cuda_source(source: Path):
-    """Build (nvcc, sm_90a) and load any CUDA source with a plain C
-    interface; ``(lib, info)``."""
-    return _build_and_load(Path(source), _nvcc(), NVCC_FLAGS)
+    return _build_and_load(CSRC / f"{name}.cu", _nvcc(), NVCC_FLAGS)
 
 
 @functools.lru_cache(maxsize=None)

@@ -18,6 +18,5 @@ that prints what the tool printed, measured on the card:
 | shadow_debug    | tools/probe_shadow_debug.py      | P12 (and K2)     |
 
 On the CPU (``main(device="cpu")``) the plain versions run and no time is
-printed. ``forms`` builds P3's device-memory gather at other indices a
-thread and threads a block and times those forms in turns.
+printed.
 """

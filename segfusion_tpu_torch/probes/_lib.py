@@ -52,20 +52,15 @@ _SIGNATURES = {
 }
 
 
-def bind(lib):
-    """Declare the launchers' signatures on ``lib``, a build of
-    ``csrc/probes.cu``; returns ``lib``."""
+@functools.lru_cache(maxsize=None)
+def library():
+    """``csrc/probes.cu``, built at first use, with its signatures."""
+    lib, _ = _build.load_library("probes")
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = [*args, _P]
         fn.restype = _I
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def library():
-    """``csrc/probes.cu``, built at first use, with its signatures."""
-    return bind(_build.load_library("probes")[0])
 
 
 def launch(launcher: str, kernel: str, device, *args):

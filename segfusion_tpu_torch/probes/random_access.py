@@ -128,13 +128,12 @@ def _take_device_memory(table: torch.Tensor, idx: torch.Tensor
                         ) -> torch.Tensor:
     """``take``'s device-memory kernel on any table, a shared-route one
     too: a measurement of the two routes on one table, which ``take``
-    itself never makes (its route is ``take_route``'s)."""
+    itself never makes (its route is ``take_route``'s). Not counted in
+    ``take.launches``."""
     if _lib.on_cpu("take", table, idx):
         return gather_plain(table, idx)
     _check_gather("take", table, idx)
-    out = _launch_gather(table, idx, smem=False)
-    take.launches += 1
-    return out
+    return _launch_gather(table, idx, smem=False)
 
 
 # P4's thread-block cluster (kCluster in csrc/probes.cu): 16 blocks, each

@@ -52,10 +52,10 @@ import probe_shadow_variants  # noqa: E402
 
 from segfusion_tpu.ops.pallas import shadow_build as jsb  # noqa: E402
 from segfusion_tpu_torch.ops.rowvol import RowLayout  # noqa: E402
-from segfusion_tpu_torch.probes import (dynamic_gather, forms,  # noqa
-                                        pallas_caps, pallas_caps2,
-                                        pallas_caps3, random_access,
-                                        shadow_debug, shadow_variants)
+from segfusion_tpu_torch.probes import (dynamic_gather, pallas_caps,  # noqa
+                                        pallas_caps2, pallas_caps3,
+                                        random_access, shadow_debug,
+                                        shadow_variants)
 
 
 def _t(a):
@@ -333,85 +333,57 @@ def test_gather_model_constants_match_the_kernel():
     assert random_access.GATHER_SMEM_MAX_BYTES == _SMEM_BYTES - 32
 
 
-# gather_global_kernel's indices a thread and threads a block (csrc/probes.cu
-# constants; test_global_gather_model_constants_match_the_kernel holds them
+# gather_global_kernel's threads a block (csrc/probes.cu kThreads, through
+# launch_flat; test_global_gather_model_constants_match_the_kernel holds it
 # to the source)
-GLOBAL_PER, GLOBAL_THREADS, GLOBAL_L2_ONLY = 1, 256, 0
-H100_SMS = 132   # streaming multiprocessors
+FLAT_THREADS = 256
 
 
-def _take_or_zero(tab, j):
-    """tab[j], 0 where the unsigned compare puts j outside the table."""
-    inside = j.astype(np.uint32) < tab.size
-    return np.where(inside, tab[np.where(inside, j, 0)], np.float32(0))
-
-
-def global_gather_model(table, idx, vec_idx=True, per=GLOBAL_PER,
-                        threads=GLOBAL_THREADS):
+def global_gather_model(table, idx, threads=FLAT_THREADS):
     """numpy model of gather_global_kernel (csrc/probes.cu), P3's
-    device-memory route, built with ``per`` indices a thread (kGlobalPer)
-    and ``threads`` a block (kGlobalThreads): ceil(n / (per threads))
-    blocks; where ``per`` is a multiple of 4 and idx and out are 16-byte
-    aligned (``vec_idx``), thread t of block b takes the per / 4 index
-    vectors b (per / 4) threads + k threads + t below n / 4, then the
-    scalar pass over [first, n) takes first + b per threads + k threads +
-    t (first: 4 (n / 4) after the vectors, else 0); an index outside the
-    table reads 0. Returns (out shaped like idx, how often each output is
-    written, the blocks)."""
+    device-memory route: ceil(n / threads) blocks of ``threads``, thread t
+    of block b taking output b threads + t below n, its index, then the
+    table entry there; an index outside the table (by the unsigned
+    compare) reads 0. Returns (out shaped like idx, how often each output
+    is written, the blocks)."""
     tab, flat = table.reshape(-1), idx.reshape(-1)
     n = flat.size
-    blocks = -(-n // (per * threads))
+    blocks = -(-n // threads)
     out = np.full(n, np.nan, np.float32)
     writes = np.zeros(n, np.int64)
-
-    def thread_items(k_max):
-        b, k, t = np.meshgrid(np.arange(blocks), np.arange(k_max),
-                              np.arange(threads), indexing="ij")
-        return (b * k_max * threads + k * threads + t).ravel()
-
-    first = 0
-    if per % 4 == 0 and vec_idx:
-        v = thread_items(per // 4)
-        v = v[v < n // 4]
-        lanes = (4 * v[:, None] + np.arange(4)).ravel()
-        np.add.at(writes, lanes, 1)
-        out[lanes] = _take_or_zero(tab, flat[lanes])
-        first = 4 * (n // 4)
-    i = first + thread_items(per)
+    b, t = np.meshgrid(np.arange(blocks), np.arange(threads), indexing="ij")
+    i = (b * threads + t).ravel()
     i = i[i < n]
     np.add.at(writes, i, 1)
-    out[i] = _take_or_zero(tab, flat[i])
+    j = flat[i]
+    inside = j.astype(np.uint32) < tab.size
+    out[i] = np.where(inside, tab[np.where(inside, j, 0)], np.float32(0))
     return out.reshape(idx.shape), writes.reshape(idx.shape), blocks
 
 
-# the kernel's form and two that probes/forms.py builds (16-byte vectors)
-GLOBAL_FORMS = [(GLOBAL_PER, GLOBAL_THREADS), (4, 128), (8, 64)]
-
-
-@pytest.mark.parametrize("per,threads", GLOBAL_FORMS,
-                         ids=[f"{p}x{t}" for p, t in GLOBAL_FORMS])
-@pytest.mark.parametrize("vec", [True, False], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("view", ["aligned", "misaligned"])
 @pytest.mark.parametrize("n", [1 << 16, 999, 5, 1])
-def test_global_gather_model_is_the_take(n, vec, per, threads):
-    """The vector body, the scalar tail and the all-scalar pass of a
-    misaligned view write every output once; on in-range indices into the
-    probe's 64^3 table the result is the tool's vector take (interpret
-    mode), and an index outside the table (negative, past the end, the
-    int32 extremes) reads 0."""
+def test_global_gather_model_is_the_take(n, view):
+    """Every output written once, on contiguous indices and on a view 4
+    bytes past a 16-byte boundary (the kernel takes both the same way); on
+    in-range indices into the probe's 64^3 table the result is the tool's
+    vector take (interpret mode), and an index outside the table
+    (negative, past the end, the int32 extremes) reads 0."""
     rng = np.random.RandomState(n)
     nvox = 64 ** 3
     table = rng.randn(1, nvox).astype(np.float32)
-    idx = rng.randint(0, nvox, (1, n)).astype(np.int32)
-    out, writes, blocks = global_gather_model(table, idx, vec, per, threads)
+    shift = 1 if view == "misaligned" else 0
+    idx = rng.randint(0, nvox, n + shift).astype(np.int32)[shift:][None]
+    out, writes, blocks = global_gather_model(table, idx)
     assert (writes == 1).all()
-    assert blocks == -(-n // (per * threads))
+    assert blocks == -(-n // FLAT_THREADS)
     np.testing.assert_array_equal(out, np.asarray(_jax_vector_take(table,
                                                                    idx)))
     bad = idx.copy()
     outside = np.array([-1, nvox, -2 ** 31, 2 ** 31 - 1], np.int32)
     where = rng.choice(n, min(n, outside.size), replace=False)
     bad[0, where] = outside[:where.size]
-    out, writes, _ = global_gather_model(table, bad, vec, per, threads)
+    out, writes, _ = global_gather_model(table, bad)
     assert (writes == 1).all()
     assert (out[0, where] == 0).all()
     keep = np.setdiff1d(np.arange(n), where)
@@ -419,49 +391,21 @@ def test_global_gather_model_is_the_take(n, vec, per, threads):
 
 
 def test_global_gather_model_constants_match_the_kernel():
-    """The model's indices a thread, block and cache path are the kernel's
-    constants; the probe's 65,536 indices take one wave (every block
-    resident at once: at most 2,048 threads and 32 blocks an SM); the
-    launcher refuses 2^31 indices (32-bit index math), and the
-    kernel takes 16-byte vectors only for a multiple of 4 indices a thread
-    where idx and out are 16-byte aligned."""
+    """The model's threads a block are launch_flat's, the launcher takes
+    launch_flat, and the kernel is one thread an output with the unsigned
+    compare the model makes."""
     src = open(os.path.join(ROOT, "segfusion_tpu_torch", "csrc",
                             "probes.cu")).read()
-    assert f"constexpr int kGlobalPer = {GLOBAL_PER};" in src
-    assert f"constexpr int kGlobalThreads = {GLOBAL_THREADS};" in src
-    assert f"constexpr int kGlobalL2Only = {GLOBAL_L2_ONLY};" in src
-    blocks = global_gather_model(np.zeros((1, 8), np.float32),
-                                 np.zeros((1, 1 << 16), np.int32))[2]
-    assert blocks <= H100_SMS * min(32, 2048 // GLOBAL_THREADS)
+    assert f"constexpr int kThreads = {FLAT_THREADS};" in src
+    assert "kernel<<<blocks_for(n), kThreads, 0, s>>>(args..., n);" in src
     launcher = src[src.index('extern "C" int sf_probe_gather_global('):]
     launcher = launcher[:launcher.index("\n}\n")]
-    assert ("if (n >= (1LL << 31)) return static_cast<int>("
-            "cudaErrorInvalidValue);") in launcher
-    assert "aligned16(idx, out)" in launcher
-    assert "if (kGlobalPer % 4 == 0 && vec_idx) {" in src
-    assert "kGlobalThreads, 0, STREAM>>>" in launcher
-
-
-def test_gather_forms_change_only_their_constants():
-    """``probes.forms`` builds the device-memory gather at every combination
-    of its constants, the kernel's own among them: each form's source differs
-    from ``csrc/probes.cu`` in those constants' lines alone, and a name
-    the source does not define once raises."""
-    src = open(os.path.join(ROOT, "segfusion_tpu_torch", "csrc",
-                            "probes.cu")).read()
-    every = forms.forms()
-    assert len(every) == 24
-    assert {"kGlobalPer": GLOBAL_PER, "kGlobalThreads": GLOBAL_THREADS,
-            "kGlobalL2Only": GLOBAL_L2_ONLY} in every
-    for values in every:
-        got = forms.form_source(src, values).splitlines()
-        changed = {b for a, b in zip(src.splitlines(), got) if a != b}
-        assert len(got) == len(src.splitlines())
-        assert changed == {f"constexpr int {k} = {v};"
-                           for k, v in values.items()
-                           if f"constexpr int {k} = {v};" not in src}
-    with pytest.raises(ValueError, match="defined 0 times"):
-        forms.form_source(src, {"kNoSuchConstant": 1})
+    assert "return launch_flat(gather_global_kernel, n, STREAM," in launcher
+    kernel = src[src.index("__global__ void gather_global_kernel("):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    assert "const long long i = tid();" in kernel
+    assert ("static_cast<unsigned>(j) < static_cast<unsigned>(n_table)"
+            in kernel)
 
 
 @pytest.mark.parametrize("updates", ["ones", "normal"])
@@ -1317,7 +1261,7 @@ def test_rows_sum_and_window_models_constants_match_the_kernel():
 
 @pytest.mark.parametrize("module", [
     "shadow_debug", "pallas_caps", "pallas_caps2", "dynamic_gather",
-    "pallas_caps3", "random_access", "forms"])
+    "pallas_caps3", "random_access"])
 def test_probe_main_runs_on_cpu(module, capsys):
     """Each probe's ``main(device="cpu")``: the plain versions, the tool's
     checks, and "not measured" in place of every time."""
