@@ -57,11 +57,27 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 7. ``fuse_many`` through the port's Database over its Synthetic dataset;
 8. the evaluation entry point ``segfusion_tpu_torch.test_fusion`` on the
    configuration of configs/fusion/synthetic_tpu_demo_joint.yaml (16
-   frames instead of 60).
+   frames instead of 60);
+9. training at full width (``bench.py`` ``bench_train``): FusionNet v3
+   (growth factor 6, the semantic head, gt labels) in bf16 on float32
+   master weights, 448^3 at 1 cm with the gt from the synthetic room's
+   SDF, 256x256 frames, chunks of 8 through ``train_sequence_rows`` with
+   the dirty carry, one rmsprop update a chunk (lr 1e-5, momentum 0.9,
+   weight decay 0.01, eps 1e-9, poly_lr, global-norm clipping): a warm-up
+   chunk, 3 timed chunks, then one ``_peek_rows``; training frames/s, ms
+   a chunk and the peak device memory;
+10. the same small training stream (64^3, 32x32, f32, TF32 off, dropout
+   0, 2 chunks of 4 with a reset) on the card and on the CPU (the plain
+   versions): loss, gradients, updated parameters and volume compared
+   (the gradients with cuDNN off: with its f32 convolutions the stream's
+   gradients lose precision, whose error is printed);
+   then ``segfusion_tpu_torch.train_fusion.train_fusion`` on the
+   configuration of configs/fusion/synthetic_small.yaml (1 epoch, 8
+   frames), its best.ckpt fed back through ``test_fusion``.
 
 Launch counts are reset just before each main-path run (3c's probe
-mains, 4, 4b, 5, 8) and read just after; the kernel checks' launches are
-not counted.
+mains, 4, 4b, 5, 8, 9 and the trainer of 10) and read just after; the
+kernel checks' launches are not counted.
 
 Then one JSON line of per-kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result where
@@ -72,6 +88,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -83,7 +100,7 @@ import numpy as np
 import torch
 
 from segfusion_tpu_torch import test_fusion as entry
-from segfusion_tpu_torch.config import default_config
+from segfusion_tpu_torch.config import Config, default_config
 from segfusion_tpu_torch.core.database import Database
 from segfusion_tpu_torch.core.pipeline import Pipeline
 from segfusion_tpu_torch.core.volume import Voxelgrid
@@ -91,13 +108,18 @@ from segfusion_tpu_torch.data.synthetic import Synthetic, SyntheticScene
 from segfusion_tpu_torch.headline import (HEADLINE_SHAPE, build_pipeline,
                                           headline_config, headline_volume,
                                           render_frames)
+from segfusion_tpu_torch.models import seeded_init
 from segfusion_tpu_torch.models.adapnet import SegmenterAdapter
+from segfusion_tpu_torch.models.fusionnet import build_fusion_net
 from segfusion_tpu_torch.ops import rowvol
 from segfusion_tpu_torch.ops.integrate import pack_semantic_key
 from segfusion_tpu_torch.ops.kernels import _build
 from segfusion_tpu_torch.ops.kernels import median3d as k5
 from segfusion_tpu_torch.ops.kernels import shadow_build as sb
 from segfusion_tpu_torch.probes import _lib as probe_lib
+from segfusion_tpu_torch.train_fusion import train_fusion
+from segfusion_tpu_torch.utils.optim import get_optimizer
+from segfusion_tpu_torch.utils.schedulers import get_schedule
 from segfusion_tpu_torch.probes import (dynamic_gather, pallas_caps,
                                         pallas_caps2, pallas_caps3,
                                         random_access, shadow_debug,
@@ -1253,6 +1275,313 @@ def entry_point(dev):
     return counts
 
 
+# -- phases 9-10: training ---------------------------------------------------
+
+def train_config(h: int = 256, w: int = 256):
+    """The headline configuration with gt labels and the training section
+    of configs/fusion/replica_accuracy.yaml (bench.py bench_train)."""
+    cfg = headline_config(h, w)
+    cfg.DATA.semantic_strategy = "gt"
+    cfg.TRAINING.optimizer = {"name": "rmsprop", "lr": 1e-5,
+                              "momentum": 0.9, "weight_decay": 0.01,
+                              "eps": 1e-9}
+    cfg.TRAINING.scheduler = {"name": "poly_lr", "max_iter": 50000}
+    cfg.TRAINING.optimization = {"reset_strategy": False, "reset_prob": 0.01,
+                                 "clipping": True, "accumulation_steps": 8}
+    return cfg
+
+
+def room_gt(n: int, dev, truncation: float = 0.1) -> torch.Tensor:
+    """SyntheticScene(seed=0, half=2.2)'s SDF, truncated, at the voxel
+    centres of headline_volume(n^3) (bench.py bench_train's gt), sampled
+    in x-slabs on a thread pool."""
+    scene = SyntheticScene(seed=0, half=2.2)
+    res = 4.48 / n
+    ax = -2.24 + (np.arange(n) + 0.5) * res
+    sdf = np.empty((n, n, n), np.float32)
+
+    def slab(x0, sx=16):
+        x, y, z = np.meshgrid(ax[x0:x0 + sx], ax, ax, indexing="ij")
+        d, _ = scene.sdf_and_labels(np.stack([x, y, z], axis=-1))
+        sdf[x0:x0 + sx] = np.clip(d, -truncation, truncation)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(slab, range(0, n, 16)))
+    return torch.as_tensor(sdf, device=dev)
+
+
+def with_labels(frames):
+    """gt labels for the semantic input: the depth quantised to 30
+    classes (bench.py bench_train)."""
+    sem = torch.clamp(frames["depth"] / 9.0 * 29.0, 0, 29).to(torch.uint8)
+    return dict(frames, semantic_gt=sem)
+
+
+def trainer(cfg, dev, n: int, seed: int = 0):
+    """(pipeline, layout, stream, gt shadow, optimizer) over an empty n^3
+    headline volume; the net seeded on the host, so every device starts
+    from the same weights."""
+    net = seeded_init(build_fusion_net(cfg.FUSION_MODEL),
+                      torch.Generator().manual_seed(seed))
+    pipe = Pipeline(cfg, fusion_net=net, device=dev, train=True)
+    volume = headline_volume(dev, (n, n, n))
+    layout = rowvol.RowLayout.for_shape((n, n, n))
+    gt = room_gt(n, dev)
+    gt_shadow = pipe._gt_shadow(layout, gt)
+    stream = pipe._new_stream(layout, pipe._enter_rows(layout, volume))
+    del gt, volume        # the packed and entered forms stay
+    opt_cfg = cfg.TRAINING.optimizer
+    optimizer = get_optimizer(
+        opt_cfg, pipe.fusion_net,
+        get_schedule(float(opt_cfg.lr), cfg.TRAINING.scheduler),
+        clipping=bool(cfg.TRAINING.optimization.clipping))
+    return pipe, layout, stream, gt_shadow, optimizer
+
+
+def train_chunk(pipe, layout, stream, gt_shadow, optimizer, frames, resets):
+    optimizer.zero_grad()
+    loss, stream = pipe.train_sequence_rows(layout, stream, gt_shadow,
+                                            frames, resets)
+    optimizer.step()
+    return float(loss), stream
+
+
+def running_stats(net) -> torch.Tensor:
+    return torch.cat([b.detach().float().reshape(-1)
+                      for n, b in net.named_buffers() if "running" in n])
+
+
+def training(dev, n: int = 448, hw: int = 256):
+    """Phase 9: the full-width training configuration (n^3, hw x hw
+    frames); returns the launch counts of the timed run."""
+    cfg = train_config(hw, hw)
+    accum = int(cfg.TRAINING.optimization.accumulation_steps)
+    t0 = time.perf_counter()
+    pipe, layout, stream, gt_shadow, optimizer = trainer(cfg, dev, n)
+    frames = with_labels(render_frames(accum, hw, hw, dev))
+    resets = [False] * accum
+    net = pipe.fusion_net
+    torch.cuda.synchronize()
+    log(f"training at {n}^3: gt packed and state entered in "
+        f"{time.perf_counter() - t0:.3f} s")
+    params0 = [p.detach().clone() for p in net.parameters()]
+    stats0 = running_stats(net)
+    loss, stream = train_chunk(pipe, layout, stream, gt_shadow, optimizer,
+                               frames, resets)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    n_chunks = 3
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(n_chunks):
+        loss, stream = train_chunk(pipe, layout, stream, gt_shadow,
+                                   optimizer, frames, resets)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = pipe._peek_rows(layout, stream.rv)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    moved = max(float((p.detach() - q).abs().max())
+                for p, q in zip(net.parameters(), params0))
+    stats_moved = float((running_stats(net) - stats0).abs().max())
+    n_frames = n_chunks * accum
+    log(f"training ({n}^3, {hw}x{hw}, v3 gf 6 + semantic head, bf16 on f32 "
+        f"master weights, chunks of {accum}, rmsprop + poly_lr + "
+        f"clipping): {n_frames} frames in {dt:.3f} s = "
+        f"{n_frames / dt:.2f} training frames/s, "
+        f"{1e3 * dt / n_chunks:.1f} ms a chunk; peak device memory "
+        f"{peak:.2f} GiB; losses {losses}; largest parameter move "
+        f"{moved:.3g}, running statistics {stats_moved:.3g}; launches "
+        f"{counts}; card {card_line()}")
+    finite = bool(torch.isfinite(out.num).all()
+                  and torch.isfinite(out.weights).all())
+    if not all(np.isfinite(losses)) or moved == 0 or stats_moved == 0:
+        raise RuntimeError("training: non-finite loss, or the parameters "
+                           "or running statistics did not move")
+    if not finite or int((out.weights > 0).sum()) == 0:
+        raise RuntimeError("training: implausible peeked volume")
+    require(counts, ["build_shadow_dirty", "reconcile_slot",
+                     "reconcile_key"], "training")
+    return counts
+
+
+def small_train_config(rule: str):
+    """Phase 10's configuration: 32x32 frames, v3 gf 2 in f32, dropout 0,
+    the exact recurrence in f32 geo, the phase-9 optimizer with ``rule``
+    at lr 1e-4."""
+    cfg = train_config(32, 32)
+    cfg.FUSION_MODEL.update(growth_factor=2, compute_dtype="float32",
+                            dropout=0.0)
+    cfg.SETTINGS.update(frame_block=1, sem_integrate_every=1,
+                        geo_dtype="float32")
+    cfg.TRAINING.optimizer.update(name=rule, lr=1e-4)
+    return cfg
+
+
+def small_training_run(cfg, dev, frames, resets, dtype=None):
+    """2 chunks of 4 over an empty 64^3 volume, the net in ``dtype``
+    (default: the configured one): (chunk losses, the first chunk's
+    gradients, the parameters and their change after both updates, the
+    exited volume), on the host."""
+    pipe, layout, stream, gt_shadow, opt = trainer(cfg, dev, 64, seed=3)
+    if dtype is not None:     # in place: the optimizer keeps its tensors
+        pipe.fusion_net.to(dtype)
+        pipe.fusion_net.compute_dtype = dtype
+    params0 = torch.cat([p.detach().reshape(-1).cpu()
+                         for p in pipe.fusion_net.parameters()])
+    losses, grads = [], None
+    for c in range(2):
+        fr = {k: v[4 * c:4 * c + 4].to(dev) for k, v in frames.items()}
+        opt.zero_grad()
+        loss, stream = pipe.train_sequence_rows(layout, stream, gt_shadow,
+                                                fr, resets[4 * c:4 * c + 4])
+        if grads is None:
+            grads = torch.cat([p.grad.detach().reshape(-1).cpu()
+                               for p in pipe.fusion_net.parameters()])
+        opt.step()
+        losses.append(float(loss))
+    params = torch.cat([p.detach().reshape(-1).cpu()
+                        for p in pipe.fusion_net.parameters()])
+    out = pipe._exit_rows(layout, stream.rv)
+    return losses, grads, params, params - params0, out
+
+
+def training_reference(dev):
+    """Phase 10: the same small training stream on the card and on the
+    CPU (plain versions): 64^3, 32x32, f32 nets, TF32 off, dropout 0, 2
+    chunks of 4 with a reset before the second chunk's third frame, the
+    phase-9 optimizer with the SGD rule (momentum 0.9) at lr 1e-4: rmsprop
+    scales each element's step to about lr whatever its gradient, so an
+    element whose gradient is rounding noise around 0 (a bias ahead of a
+    BatchNorm) steps a full lr of either sign on either device, while
+    SGD's step carries the gradients' agreement (rmsprop is held to optax
+    on the CPU by the tests and runs here in phase 9).
+
+    With cuDNN's f32 convolutions this stream's gradients lie 0.375
+    (relative L2) from a float64 run's, 0.0022 with cuDNN off and 0.0018
+    on the CPU (tools/training_precision.py, H100 80GB HBM3 at 700 W):
+    BatchNorm over the nearly constant channels of an empty volume's
+    first frames amplifies the rounding (PERF.md §7). So the gradients
+    and the updated parameters are held with cuDNN off, and the run as
+    users run it (cuDNN on) on its first chunk's loss (rtol 1e-3; it
+    moved 2.3e-5 with cuDNN) and the volume's weights, its errors
+    printed. Tolerances
+    (measured CPU f32 against CPU f64 beside them): the losses within
+    rtol 1e-5 (2e-7); the first chunk's gradients within 1e-2 of the
+    largest (1.0e-3); the parameters within 1e-2 of the update's L2 norm
+    (0.0055); the volume as phase 6: weights atol 1e-3 + rtol 1e-3, tsdf
+    1e-3 where the weight exceeds 0.05 (8.5e-6)."""
+    cfg = small_train_config("sgd")
+    frames = with_labels(render_frames(8, 32, 32, "cpu"))
+    resets = [False] * 6 + [True, False]
+    ref = small_training_run(cfg, "cpu", frames, resets)
+    with torch.backends.cudnn.flags(enabled=False):
+        exact = small_training_run(cfg, dev, frames, resets)
+    users = small_training_run(cfg, dev, frames, resets)
+    l_ref, g_ref, p_ref, step, v_ref = ref
+    obs = v_ref.weights > 0.05
+
+    def errors(run):
+        losses, g, p, _, v = run
+        return {"losses": losses,
+                "grad": float((g - g_ref).abs().max() / g_ref.abs().max()),
+                "grad_l2": float((g - g_ref).norm() / g_ref.norm()),
+                "param_l2": float((p - p_ref).norm() / step.norm()),
+                "w": float((v.weights.cpu() - v_ref.weights).abs().max()),
+                "tsdf": float((v.tsdf.cpu()[obs] - v_ref.tsdf[obs])
+                              .abs().max())}
+
+    e_exact, e_users = errors(exact), errors(users)
+    log(f"training reference (card vs CPU plain path, 64^3, 2 chunks of 4, "
+        f"{int(obs.sum())} observed voxels; CPU losses {l_ref}): cuDNN off "
+        f"{e_exact}; cuDNN on {e_users}")
+
+    def volume_ok(run):
+        return (torch.allclose(run[4].weights.cpu(), v_ref.weights,
+                               atol=1e-3, rtol=1e-3)
+                and errors(run)["tsdf"] <= 1e-3)
+    ok = (np.allclose(e_exact["losses"], l_ref, rtol=1e-5)
+          and e_exact["grad"] <= 1e-2 and e_exact["param_l2"] <= 1e-2
+          and volume_ok(exact) and int(obs.sum()) > 1000
+          and np.allclose(e_users["losses"][0], l_ref[0], rtol=1e-3)
+          and torch.allclose(users[4].weights.cpu(), v_ref.weights,
+                             atol=1e-3, rtol=1e-3))
+    if not ok:
+        raise RuntimeError("card and CPU training disagree on the small "
+                           "input")
+
+
+def synthetic_small_config(path: str):
+    """configs/fusion/synthetic_small.yaml built in Python (the card's
+    machine has no PyYAML), cut to 8 frames; ply saves only (it may have
+    no h5py)."""
+    return Config({
+        "SETTINGS": {"num_workers": 0, "experiment_path": path,
+                     "save_mode": "ply", "eval_freq": 16, "log_freq": 8,
+                     "seed": 1911},
+        "FUSION_MODEL": {"name": "v3", "output_scale": 1.0, "n_points": 5,
+                         "n_tail_points": 4, "growth_factor": 2,
+                         "use_semantics": False},
+        "SEMANTIC_2D_MODEL": {"stage": 1, "n_classes": 8},
+        "TRAINING": {"n_epochs": 1,
+                     "optimizer": {"name": "rmsprop", "lr": 1e-4,
+                                   "momentum": 0.9, "weight_decay": 0.01,
+                                   "eps": 1e-9},
+                     "scheduler": {"name": "poly_lr", "max_iter": 1000},
+                     "loss": {"name": "fusion", "w_l1": 1.0, "w_l2": 10,
+                              "w_cos": 0.1},
+                     "optimization": {"reset_strategy": False,
+                                      "reset_prob": 0.01, "clipping": True,
+                                      "accumulation_steps": 4}},
+        "TESTING": {"outlier_filter_val": 0.5},
+        "DATA": {"dataset": "Synthetic", "semantics": None,
+                 "semantic_strategy": "gt", "semantic_grid": False,
+                 "data_load_strategy": "max_depth_diversity",
+                 "input": "tof_depth", "resx": 48, "resy": 48, "n_frames": 8,
+                 "n_scenes": 1, "voxel_resolution": 0.1,
+                 "noise_sigma": 0.004, "init_value": 0.24, "pad": 2}})
+
+
+def train_entry_point(dev):
+    """``train_fusion`` on synthetic_small (1 epoch, 8 frames), then its
+    best.ckpt through ``test_fusion``; returns the launch counts."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as path:
+        cfg = synthetic_small_config(path)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        net, ws = train_fusion(cfg, dev)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        files = sorted(os.listdir(ws.model_path))
+        tcfg = synthetic_small_config(os.path.join(path, "test"))
+        tcfg.TESTING.fusion_model_path = os.path.join(ws.model_path,
+                                                      "best.ckpt")
+        loaded = entry.test_fusion(tcfg, dev)
+        dcfg = synthetic_small_config(os.path.join(path, "direct"))
+        direct = entry.test_fusion(dcfg, dev, fusion_net=net)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    log(f"train_fusion entry point (synthetic_small, 8 frames of 48x48): "
+        f"{t_train:.3f} s, wrote {files}; test_fusion from best.ckpt "
+        f"{json.dumps(loaded)}; launches {counts}")
+    if files != ["best.ckpt", "last.ckpt"]:
+        raise RuntimeError(f"train_fusion wrote {files}")
+    # the card's float scatter-add sums in any order: metrics within 1e-4,
+    # the mesh F-scores within 0.01 (tests/test_torch_test_fusion.py)
+    far = [k for k in direct if not abs(loaded[k] - direct[k]) <= (
+        0.01 if k.startswith("mesh_") else 1e-4)]
+    if far or set(loaded) != set(direct):
+        raise RuntimeError(f"test_fusion from best.ckpt differs from the "
+                           f"trained net: {far}")
+    require(counts, ["build_shadow_dirty", "reconcile_slot",
+                     "reconcile_key"], "train_fusion")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1290,6 +1619,11 @@ def main() -> int:
     fuse_many_run(dev)
     for k, n in entry_point(dev).items():
         launches[k] += n
+    for phase in (training, train_entry_point):
+        for k, n in phase(dev).items():
+            launches[k] += n
+        torch.cuda.empty_cache()
+    training_reference(dev)
 
     replaces = {"build_shadow_dirty": f"{PALLAS}:359",
                 "build_shadow": f"{PALLAS}:254",

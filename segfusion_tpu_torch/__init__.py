@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of SegFusion's online joint inference stream.
+"""PyTorch/CUDA port of SegFusion's online joint inference stream, its
+evaluation and its online training.
 
 Counterpart of ``segfusion_tpu`` (the JAX reference) for one NVIDIA H100:
 the same module layout (``ops/``, ``models/``, ``core/``, ``data/``,

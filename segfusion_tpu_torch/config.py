@@ -1,7 +1,8 @@
 """Config: attribute-accessible nested dict with the slice's defaults.
 
-Port of ``segfusion_tpu/config.py`` for the sections the inference and
-evaluation slices read. ``yaml`` is imported only by :func:`load_config`.
+Port of ``segfusion_tpu/config.py`` for the sections the inference,
+evaluation and training slices read. ``yaml`` is imported only by
+:func:`load_config`.
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ _DEFAULTS = {
         "num_workers": 0,
         "experiment_path": "workspace/default",
         "save_mode": "test",
+        "eval_freq": 2000,
+        "log_freq": 250,
     },
     "FUSION_MODEL": {
         "name": "v3",
@@ -60,10 +63,27 @@ _DEFAULTS = {
         "n_tail_points": 7,
         "growth_factor": 6,
         "use_semantics": False,
+        "pretrained": None,
     },
     "SEMANTIC_2D_MODEL": {
         "stage": 1,
         "n_classes": 30,
+    },
+    "TRAINING": {
+        "train_batch_size": 1,
+        "train_shuffle": False,
+        "train_ratio": 1,
+        "val_batch_size": 1,
+        "val_shuffle": False,
+        "val_ratio": 1,
+        "n_epochs": 1,
+        "resume": None,
+        "optimizer": {"name": "rmsprop", "lr": 1.0e-5, "momentum": 0.9,
+                      "weight_decay": 0.01, "eps": 1.0e-9},
+        "scheduler": {"name": "poly_lr", "max_iter": 50000},
+        "loss": {"name": "fusion", "w_l1": 1.0, "w_l2": 10.0, "w_cos": 0.1},
+        "optimization": {"reset_strategy": False, "reset_prob": 0.01,
+                         "clipping": True, "accumulation_steps": 8},
     },
     "TESTING": {
         "test_batch_size": 1,

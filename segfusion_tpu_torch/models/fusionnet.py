@@ -4,24 +4,99 @@ Port of ``segfusion_tpu/models/fusionnet.py`` (v3, the paper's model).
 Submodules carry the Flax auto-names (``Conv_0``, ``BatchNorm_0``,
 ``Block_0``, ...) so ``utils/convert.py`` maps a Flax parameter tree onto
 the module by name. The public input is the JAX package's NHWC dict;
-the convolutions run NCHW inside. Dropout layers are identity at
-inference; BatchNorm uses running statistics (epsilon 1e-5).
+the convolutions run NCHW inside.
+
+The net computes in ``compute_dtype`` (default: its parameters' dtype).
+Convolutions and the inference BatchNorm cast their parameters to it, so
+a float32 net with a bfloat16 ``compute_dtype`` (the trainer's f32 master
+weights) infers bit-identically to the same net cast to bfloat16, as
+Flax's ``dtype=bfloat16`` keeps float32 parameters. In train mode the
+layers do what Flax's do: BatchNorm normalises with float32 batch
+statistics and updates its running averages (epsilon 1e-5, momentum
+0.99, the biased variance), and dropout drops whole channels, drawing
+from the generator given to :meth:`FusionNetV3.set_dropout_generator`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Block", "Pred", "VortexPooling", "FusionHead", "FusionNetV3",
-           "build_fusion_net"]
+__all__ = ["BatchNorm", "Conv2d", "Dropout", "Block", "Pred",
+           "VortexPooling", "FusionHead", "FusionNetV3", "build_fusion_net"]
+
+_BN_MOMENTUM = 0.99   # Flax's: new = 0.99 * running + 0.01 * batch
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.01)
+class Conv2d(nn.Conv2d):
+    """Conv2d computing in its input's dtype (parameters cast to it)."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  self.bias.to(x.dtype))
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """Flax ``nn.BatchNorm(use_running_average=not train)`` over NCHW.
+
+    Inference: the running statistics, parameters cast to the input's
+    dtype. Train mode (``fusionnet_fast._bn_train`` of the JAX package
+    spells it out): float32 mean and biased variance ``mean(x^2) -
+    mean^2`` clamped at 0 over N, H and W; ``(x - mean) * (rsqrt(var +
+    eps) * scale) + bias`` in float32, returned in the input's dtype; the
+    running averages move by momentum 0.99, fed the same biased variance.
+    """
+
+    def __init__(self, ch: int):
+        super().__init__(ch, eps=1e-5, momentum=1.0 - _BN_MOMENTUM)
+
+    def forward(self, x):
+        if not self.training:
+            dt = x.dtype
+            return F.batch_norm(x, self.running_mean.to(dt),
+                                self.running_var.to(dt), self.weight.to(dt),
+                                self.bias.to(dt), False, 0.0, self.eps)
+        xf = x.float()
+        mean = xf.mean((0, 2, 3))
+        # maximum, not clamp: at a tie its gradient splits, as jnp's does
+        var = torch.maximum(xf.square().mean((0, 2, 3)) - mean.square(),
+                            torch.zeros((), device=x.device))
+        with torch.no_grad():
+            self.running_mean.copy_(_BN_MOMENTUM * self.running_mean
+                                    + (1.0 - _BN_MOMENTUM) * mean)
+            self.running_var.copy_(_BN_MOMENTUM * self.running_var
+                                   + (1.0 - _BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """Flax ``nn.Dropout(rate, broadcast_dims=(1, 2))``: in train mode one
+    keep draw per (sample, channel), kept values scaled by 1 / (1 -
+    rate). Draws from ``generator`` (never the global RNG); identity at
+    inference and at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.rate <= 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("dropout in train mode needs a generator "
+                               "(FusionNetV3.set_dropout_generator)")
+        keep = 1.0 - self.rate
+        u = torch.rand(x.shape[:2] + (1, 1), generator=self.generator,
+                       device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                             device=x.device))
 
 
 def _lrelu(x):
@@ -33,11 +108,11 @@ class Block(nn.Module):
 
     def __init__(self, in_ch: int, features: int, dropout: float = 0.2):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_ch, features, 3, padding=1)
-        self.BatchNorm_0 = _bn(features)
-        self.Conv_1 = nn.Conv2d(features, features, 3, padding=1)
-        self.BatchNorm_1 = _bn(features)
-        self.drop = nn.Dropout2d(dropout)
+        self.Conv_0 = Conv2d(in_ch, features, 3, padding=1)
+        self.BatchNorm_0 = BatchNorm(features)
+        self.Conv_1 = Conv2d(features, features, 3, padding=1)
+        self.BatchNorm_1 = BatchNorm(features)
+        self.drop = Dropout(dropout)
 
     def forward(self, x):
         x = self.drop(_lrelu(self.BatchNorm_0(self.Conv_0(x))))
@@ -52,14 +127,14 @@ class Pred(nn.Module):
                  dropout: float = 0.2):
         super().__init__()
         self.final = n_points is not None
-        self.Conv_0 = nn.Conv2d(in_ch, features, 1)
-        self.BatchNorm_0 = _bn(features)
-        self.Conv_1 = nn.Conv2d(features, features, 1)
+        self.Conv_0 = Conv2d(in_ch, features, 1)
+        self.BatchNorm_0 = BatchNorm(features)
+        self.Conv_1 = Conv2d(features, features, 1)
         if self.final:
-            self.Conv_2 = nn.Conv2d(features, n_points, 1)
+            self.Conv_2 = Conv2d(features, n_points, 1)
         else:
-            self.BatchNorm_1 = _bn(features)
-        self.drop = nn.Dropout2d(dropout)
+            self.BatchNorm_1 = BatchNorm(features)
+        self.drop = Dropout(dropout)
 
     def forward(self, x):
         x = self.drop(_lrelu(self.BatchNorm_0(self.Conv_0(x))))
@@ -77,21 +152,21 @@ class VortexPooling(nn.Module):
                  rates: Sequence[int] = (1, 3, 9, 27), dropout: float = 0.2):
         super().__init__()
         self.rates = tuple(rates)
-        self.Conv_0 = nn.Conv2d(in_ch, out, 1)
-        self.BatchNorm_0 = _bn(out)
+        self.Conv_0 = Conv2d(in_ch, out, 1)
+        self.BatchNorm_0 = BatchNorm(out)
         for i, r in enumerate(self.rates):
             k = 1 + 4 * i
             chans = [(in_ch, mid, 1, 0, 1), (mid, mid, 3, r, r),
                      (mid, mid, 3, r, r), (mid, out, 1, 0, 1)]
             for j, (ci, co, ks, pad, dil) in enumerate(chans):
-                self.add_module(f"Conv_{k + j}", nn.Conv2d(
+                self.add_module(f"Conv_{k + j}", Conv2d(
                     ci, co, ks, padding=pad, dilation=dil))
-                self.add_module(f"BatchNorm_{k + j}", _bn(co))
+                self.add_module(f"BatchNorm_{k + j}", BatchNorm(co))
         last = 1 + 4 * len(self.rates)
         self.add_module(f"Conv_{last}",
-                        nn.Conv2d(out * (1 + len(self.rates)), out, 1))
-        self.add_module(f"BatchNorm_{last}", _bn(out))
-        self.drop = nn.Dropout2d(dropout)
+                        Conv2d(out * (1 + len(self.rates)), out, 1))
+        self.add_module(f"BatchNorm_{last}", BatchNorm(out))
+        self.drop = Dropout(dropout)
 
     def _cbr(self, i, x):
         return F.relu(getattr(self, f"BatchNorm_{i}")(
@@ -99,8 +174,12 @@ class VortexPooling(nn.Module):
 
     def forward(self, x):
         h, w = x.shape[-2:]
-        # image-level branch; BN is per-channel affine at inference, so it
-        # commutes with the broadcast
+        # image-level branch: Flax normalises the broadcast map. BN
+        # commutes with the broadcast: at inference it is per-channel
+        # affine, in train mode the map's statistics over (N, H, W) are
+        # those of the N per-sample values. (Over N = 1 they are exact:
+        # the output is the BN bias and its gradient 0, where the map's
+        # rounded sums leave Flax a noise gradient.)
         g = self.BatchNorm_0(self.Conv_0(x.mean((2, 3), keepdim=True)))
         branches = [g.expand(-1, -1, h, w)]
         xp = x
@@ -146,6 +225,7 @@ class FusionNetV3(nn.Module):
         super().__init__()
         self.use_semantics = use_semantics
         self.output_scale = float(output_scale)
+        self.compute_dtype: Optional[torch.dtype] = None
         n_ch = 2 * n_points + 1
         gf = growth_factor - 1
         pool_in = n_ch * (gf + 1)
@@ -165,8 +245,14 @@ class FusionNetV3(nn.Module):
                 in_ch, feats, n_points if i == gf - 1 else None, dropout))
             in_ch = feats
 
+    def set_dropout_generator(self, generator: torch.Generator):
+        """The generator every dropout layer draws from in train mode."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = generator
+
     def forward(self, data: Dict[str, torch.Tensor]) -> torch.Tensor:
-        dtype = self.VortexPooling_0.Conv_0.weight.dtype
+        dtype = self.compute_dtype or self.VortexPooling_0.Conv_0.weight.dtype
 
         def cat(keys):
             x = torch.cat([data[k] for k in keys], -1)

@@ -16,11 +16,15 @@ from __future__ import annotations
 
 import argparse
 
+import torch
+
 from .config import get_data_config, with_defaults
 from .core.database import Database
 from .core.pipeline import Pipeline
 from .data import PrefetchLoader, get_data
 from .device import resolve_device
+from .models.adapnet import SegmenterAdapter
+from .utils.convert import adapnet_from_checkpoint, fusionnet_from_checkpoint
 from .utils.workspace import get_workspace
 
 __all__ = ["test_fusion"]
@@ -30,9 +34,11 @@ def test_fusion(config, device="cuda", fusion_net=None, segmenter=None):
     """Fuse, filter, evaluate and save the test split of ``config`` (the
     JAX package's schema; missing keys take the port's defaults, filled in
     place). ``fusion_net`` / ``segmenter``: loaded nets (the segmenter a
-    ``models.adapnet.SegmenterAdapter`` on ``device``); without a fusion
-    net one is built with random weights from seed 0. Checkpoint paths in
-    TESTING are not read yet. Returns the metrics dict."""
+    ``models.adapnet.SegmenterAdapter`` on ``device``); where they are
+    not given they load from TESTING.fusion_model_path /
+    semantic_2d_model_path (Flax checkpoints of either package), and
+    without a fusion checkpoint the net has random weights from seed 0.
+    Returns the metrics dict."""
     with_defaults(config)
     device = resolve_device(device)
     testing = config.TESTING
@@ -49,17 +55,23 @@ def test_fusion(config, device="cuda", fusion_net=None, segmenter=None):
         if not testing.semantic_2d_model_path:
             raise ValueError("semantic_strategy 'predict' needs "
                              "TESTING.semantic_2d_model_path")
-        raise NotImplementedError(
-            "loading Flax checkpoints comes with the training slice "
-            "(ROADMAP Queue 1 #2); pass a loaded segmenter instead")
+        model = adapnet_from_checkpoint(testing.semantic_2d_model_path,
+                                        config.SEMANTIC_2D_MODEL)
+        dtype = (torch.bfloat16 if config.SEMANTIC_2D_MODEL.get(
+            "compute_dtype") in ("bfloat16", "bf16") else torch.float32)
+        segmenter = SegmenterAdapter(model.to(device, dtype).eval())
+        workspace.log(f"loaded segmentation checkpoint "
+                      f"{testing.semantic_2d_model_path}", "test")
     if fusion_net is None:
         if testing.fusion_model_path:
-            raise NotImplementedError(
-                "loading Flax checkpoints comes with the training slice "
-                "(ROADMAP Queue 1 #2); pass a loaded fusion_net instead")
-        # the Pipeline draws the weights from seed 0
-        workspace.log("WARNING: no fusion checkpoint given -- "
-                      "running with random weights", "test")
+            fusion_net = fusionnet_from_checkpoint(testing.fusion_model_path,
+                                                   config.FUSION_MODEL)
+            workspace.log(f"loaded fusion checkpoint "
+                          f"{testing.fusion_model_path}", "test")
+        else:
+            # the Pipeline draws the weights from seed 0
+            workspace.log("WARNING: no fusion checkpoint given -- "
+                          "running with random weights", "test")
     pipeline = Pipeline(config, segmenter=segmenter, fusion_net=fusion_net,
                         device=device)
 

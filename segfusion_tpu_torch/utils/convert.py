@@ -1,12 +1,16 @@
-"""Flax parameter trees -> the port's modules.
+"""Flax parameter trees <-> the port's modules.
 
 Counterpart of ``segfusion_tpu/utils/torch_convert.py``: the port's modules
-carry the Flax auto-names, so a Flax tree maps onto them by name.
+carry the Flax auto-names, so a Flax tree maps onto them by name, and
+:func:`to_flax` writes a module back as Flax trees.
 Conv kernels HWIO become OIHW; ConvTranspose kernels (kH, kW, in, out)
 become (in, out, kH, kW) spatially flipped (Flax applies them unflipped,
 torch flipped); BatchNorm scale/bias/mean/var become weight/bias/
 running_mean/running_var. Every Flax leaf must be consumed and every
-parameter and buffer of the module set, or loading raises.
+parameter and buffer of the module set, or loading raises. The inverse
+(:func:`to_flax`, :func:`flax_tree`, :func:`from_flax_tree`) undoes each
+of these, so a module's parameters and any per-parameter tensors (grads,
+optimizer moments) carry across both ways.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ from torch import nn
 from ..models.adapnet import build_adapnet
 from ..models.fusionnet import build_fusion_net
 
-__all__ = ["load_flax", "fusionnet_from_flax", "adapnet_from_flax"]
+__all__ = ["load_flax", "fusionnet_from_flax", "adapnet_from_flax",
+           "fusionnet_from_checkpoint", "adapnet_from_checkpoint",
+           "to_flax", "flax_tree", "from_flax_tree"]
 
 
 def _leaves(tree, prefix=()):
@@ -102,3 +108,117 @@ def fusionnet_from_flax(params, batch_stats, cfg) -> nn.Module:
 def adapnet_from_flax(params, batch_stats, cfg) -> nn.Module:
     """SEMANTIC_2D_MODEL config + Flax AdapNet trees -> loaded AdapNet."""
     return load_flax(build_adapnet(cfg), params, batch_stats)
+
+
+def fusionnet_from_checkpoint(path: str, cfg) -> nn.Module:
+    """FUSION_MODEL config + a fusion checkpoint (either package's) ->
+    loaded FusionNetV3: its ``params`` with a ``_fusion_network`` prefix
+    stripped (the reference's pipeline checkpoints carry one) and its
+    ``batch_stats``, the module's initial statistics where it has none
+    (as the JAX package's ``test_fusion`` loads it)."""
+    from .checkpoints import load_checkpoint, remove_parent
+    ck = load_checkpoint(path)
+    net = build_fusion_net(cfg)
+    params = remove_parent(ck.get("params", ck), "_fusion_network")
+    return load_flax(net, params, ck.get("batch_stats") or to_flax(net)[1])
+
+
+def adapnet_from_checkpoint(path: str, cfg) -> nn.Module:
+    """SEMANTIC_2D_MODEL config + a segmentation checkpoint -> AdapNet."""
+    from .checkpoints import load_checkpoint
+    ck = load_checkpoint(path)
+    return adapnet_from_flax(ck["params"], ck.get("batch_stats", {}), cfg)
+
+
+# -- the module -> Flax direction ---------------------------------------------
+
+_BN_NAMES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+             "running_mean": ("batch_stats", "mean"),
+             "running_var": ("batch_stats", "var")}
+
+
+def _flax_slots(module: nn.Module):
+    """torch state name -> (collection, Flax path, layer) for every tensor
+    the Flax trees hold (``num_batches_tracked`` has no Flax leaf)."""
+    slots = {}
+    for mod_name, layer in module.named_modules():
+        path = tuple(mod_name.split(".")) if mod_name else ()
+        if isinstance(layer, nn.BatchNorm2d):
+            for attr, (col, leaf) in _BN_NAMES.items():
+                slots[f"{mod_name}.{attr}"] = (col, path + (leaf,), layer)
+        elif isinstance(layer, (nn.Conv2d, nn.ConvTranspose2d)):
+            slots[f"{mod_name}.weight"] = ("params", path + ("kernel",),
+                                           layer)
+            if layer.bias is not None:
+                slots[f"{mod_name}.bias"] = ("params", path + ("bias",),
+                                             layer)
+    return slots
+
+
+def _to_flax_layout(layer, leaf: str, value: np.ndarray) -> np.ndarray:
+    if leaf != "kernel":
+        return value
+    if isinstance(layer, nn.ConvTranspose2d):
+        return np.ascontiguousarray(
+            np.transpose(value, (2, 3, 0, 1))[::-1, ::-1])
+    return np.ascontiguousarray(np.transpose(value, (2, 3, 1, 0)))
+
+
+def _from_flax_layout(layer, leaf: str, value: np.ndarray) -> np.ndarray:
+    if leaf != "kernel":
+        return np.asarray(value)
+    if isinstance(layer, nn.ConvTranspose2d):
+        return np.transpose(np.asarray(value)[::-1, ::-1], (2, 3, 0, 1))
+    return np.transpose(np.asarray(value), (3, 2, 0, 1))
+
+
+def _host(t) -> np.ndarray:
+    return (t.detach().float().cpu().numpy() if t.is_floating_point()
+            else t.detach().cpu().numpy())
+
+
+def flax_tree(module: nn.Module, tensors: Mapping[str, torch.Tensor],
+              collection: str = "params") -> dict:
+    """Per-tensor values keyed by the module's state names (its
+    parameters, or tensors shaped like them: grads, optimizer moments)
+    as the Flax ``collection`` tree, in Flax layout, float32 numpy."""
+    tree: dict = {}
+    for name, (col, path, layer) in _flax_slots(module).items():
+        if col != collection:
+            continue
+        d = tree
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = _to_flax_layout(layer, path[-1], _host(tensors[name]))
+    return tree
+
+
+def from_flax_tree(module: nn.Module, tree: Mapping,
+                   collection: str = "params") -> dict:
+    """The inverse of :func:`flax_tree`: state name -> numpy value in the
+    module's layout (shape-checked against the module)."""
+    state = module.state_dict()
+    out = {}
+    for name, (col, path, layer) in _flax_slots(module).items():
+        if col != collection:
+            continue
+        d = tree
+        for k in path:
+            if k not in d:
+                raise KeyError("Flax tree has no leaf " + "/".join(path))
+            d = d[k]
+        value = _from_flax_layout(layer, path[-1], d)
+        if tuple(value.shape) != tuple(state[name].shape):
+            raise ValueError(f"shape mismatch at {name}: "
+                             f"{tuple(value.shape)} vs "
+                             f"{tuple(state[name].shape)}")
+        out[name] = value
+    return out
+
+
+def to_flax(module: nn.Module):
+    """The module as Flax ``(params, batch_stats)`` numpy trees, kernels
+    HWIO: the inverse of :func:`load_flax`."""
+    state = module.state_dict()
+    return (flax_tree(module, state, "params"),
+            flax_tree(module, state, "batch_stats"))

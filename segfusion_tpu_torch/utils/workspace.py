@@ -3,9 +3,9 @@
 The port's own copy of ``segfusion_tpu/utils/workspace.py``:
 ``<experiment_path>/<timestamp>/{model,logs,output}``, file + console
 loggers per mode, TensorBoard scalars through tensorboardX where it is
-installed, gzip hdf5 volume savers, the ply mesh saver and a json snapshot
-of the config. Saving model checkpoints comes with the training slice
-(ROADMAP Queue 1 #2).
+installed, gzip hdf5 volume savers, the ply mesh saver, a json snapshot
+of the config and the best / last model checkpoints (``utils/checkpoints``,
+the JAX package's Flax msgpack format).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import json
 import logging
 import os
 import sys
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -104,6 +104,15 @@ class Workspace:
         v, f, n = marching_cubes(np.asarray(tsdf_volume, np.float32), 0.0,
                                  spacing=voxel_size)
         self.save_ply_mesh(filename, v, f, normals=n)
+
+    def save_model_state(self, state: Dict[str, Any], is_best: bool = False,
+                         name: Optional[str] = None):
+        """``model/best.ckpt`` (or ``name``) when ``is_best``, else
+        ``model/last.ckpt``."""
+        from .checkpoints import save_checkpoint
+        fname = name if (is_best and name) else (
+            "best.ckpt" if is_best else "last.ckpt")
+        save_checkpoint(state, os.path.join(self.model_path, fname))
 
 
 class _NullWriter:

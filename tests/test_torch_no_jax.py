@@ -1,9 +1,9 @@
 """The port runs where there is no JAX: every module of
 ``segfusion_tpu_torch`` (its ``test_fusion`` entry point included) and
-``chip_smoke.py`` import with ``jax``, ``jaxlib``, ``flax``, ``optax`` and
-``yaml`` blocked, and with the whole ``segfusion_tpu`` namespace (the JAX
-package, host modules included) blocked too: the port keeps its own copies
-of what it needs."""
+``chip_smoke.py`` import with ``jax``, ``jaxlib``, ``flax``, ``optax``,
+``msgpack`` and ``yaml`` blocked, and with the whole ``segfusion_tpu``
+namespace (the JAX package, host modules included) blocked too: the port
+keeps its own copies of what it needs (its checkpoint codec included)."""
 
 import os
 import subprocess
@@ -15,7 +15,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "segfusion_tpu"}
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "msgpack", "yaml",
+               "segfusion_tpu"}
 
     def refused(name):
         return name.split(".")[0] in BLOCKED
@@ -35,6 +36,8 @@ _PROBE = textwrap.dedent("""
         importlib.import_module(name)
     assert "segfusion_tpu_torch.test_fusion" in names
     assert "segfusion_tpu_torch.probes.random_access" in names
+    assert "segfusion_tpu_torch.train_fusion" in names
+    assert "segfusion_tpu_torch.utils.checkpoints" in names
     leaked = sorted(m for m in sys.modules if refused(m))
     assert not leaked, leaked
     print(len(names))

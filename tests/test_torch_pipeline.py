@@ -32,7 +32,8 @@ from segfusion_tpu_torch.models.adapnet import SegmenterAdapter
 from segfusion_tpu_torch.ops.raycast import render_depth
 from segfusion_tpu_torch.utils.convert import (adapnet_from_flax,
                                                fusionnet_from_flax)
-from tests.test_torch_nets import random_variables
+from tests.test_torch_nets import (one_torch_thread,  # noqa: F401
+                                   random_variables)
 
 H = W = 32
 VSHAPE = (64, 64, 64)
@@ -260,3 +261,84 @@ def test_port_refuses_scalar_integration():
     cfg.SETTINGS.integration = "rows"
     assert JPipeline(cfg).row_path
     assert Pipeline(Config(cfg), device="cpu").frame_block == 1
+
+
+def _fuse_many_pair(cfg, batches, chunk):
+    """The same batches through JAX and port ``fuse_many`` with the same
+    seeded FusionNet; returns both Databases, the port's Pipeline and, per
+    side, the scene ids in the order ``Database.update`` saw them."""
+    jdata = JSynthetic(cfg.DATA)
+    pdata = Synthetic(Config(cfg).DATA, device="cpu")
+    jdb = JDatabase(jdata, cfg.DATA)
+    jpipe = JPipeline(cfg)
+    dummy = {"tsdf_values": jnp.zeros((1, 24, 24, 5)),
+             "tsdf_weights": jnp.zeros((1, 24, 24, 5)),
+             "tsdf_frame": jnp.zeros((1, 24, 24, 1))}
+    fparams = random_variables(jpipe.fusion_net, np.random.RandomState(3),
+                               dummy)
+    pcfg = Config(cfg)
+    db = Database(pdata, pcfg.DATA, device="cpu")
+    pipe = Pipeline(pcfg, fusion_net=fusionnet_from_flax(*fparams,
+                                                         pcfg.FUSION_MODEL),
+                    device="cpu")
+    seen = {"jax": [], "port": []}
+    for side, d in (("jax", jdb), ("port", db)):
+        update = d.update
+
+        def record(scene_id, volume, update=update, side=side):
+            seen[side].append(scene_id)
+            update(scene_id, volume)
+        d.update = record
+    jpipe.fuse_many(batches, jdb, *fparams, chunk=chunk)
+    pipe.fuse_many(batches, db, chunk=chunk)
+    return jdb, db, pipe, jpipe, seen
+
+
+def test_env_overrides_match_jax(monkeypatch):
+    """SEGFUSION_FRAME_BLOCK / SEGFUSION_GEO_DTYPE override the config in
+    both packages: 4-frame blocks into bf16 geo state. Volumes within the
+    bf16 bounds of test_slice_matches_jax (weights atol 0.1 + rtol 0.05,
+    tsdf atol 0.02 on observed voxels)."""
+    monkeypatch.setenv("SEGFUSION_FRAME_BLOCK", "4")
+    monkeypatch.setenv("SEGFUSION_GEO_DTYPE", "bfloat16")
+    cfg = _small_data_config()
+    cfg.DATA.n_scenes = 1
+    batches = [_batch(JSynthetic(cfg.DATA)[i]) for i in range(6)]
+    jdb, db, pipe, jpipe, _ = _fuse_many_pair(cfg, batches, chunk=4)
+    assert jpipe.frame_block == pipe.frame_block == 4
+    assert jpipe.geo_dtype == jnp.bfloat16
+    assert pipe.geo_dtype == torch.bfloat16
+    for s in jdb.scenes:
+        jw = np.asarray(jdb.volumes[s].weights)
+        tw = db.volumes[s].weights.numpy()
+        np.testing.assert_allclose(tw, jw, atol=0.1, rtol=0.05)
+        obs = jw > 0.05
+        assert obs.sum() > 100
+        np.testing.assert_allclose(db.volumes[s].tsdf.numpy()[obs],
+                                   np.asarray(jdb.volumes[s].tsdf)[obs],
+                                   atol=0.02)
+
+
+def test_max_live_row_scenes_matches_jax():
+    """SETTINGS.max_live_row_scenes: 2 keeps both interleaved scenes'
+    slot states live in both packages: each scene is written back to the
+    Database once, at the end, in the same order (with 1, every chunk of
+    the other scene evicts it). Volumes as in test_fuse_many_matches_jax."""
+    cfg = _small_data_config()
+    cfg.SETTINGS.max_live_row_scenes = 2
+    nf = cfg.DATA.n_frames
+    jdata = JSynthetic(cfg.DATA)
+    idxs = [i for pair in zip(range(5), range(nf, nf + 5)) for i in pair]
+    batches = [_batch(jdata[i]) for i in idxs]
+    jdb, db, _, _, seen = _fuse_many_pair(cfg, batches, chunk=2)
+    assert seen["jax"] == jdb.scenes
+    assert seen["port"] == seen["jax"]
+    for s in jdb.scenes:
+        jw = np.asarray(jdb.volumes[s].weights)
+        np.testing.assert_allclose(db.volumes[s].weights.numpy(), jw,
+                                   atol=1e-3, rtol=1e-3)
+        obs = jw > 0.05
+        assert obs.sum() > 100
+        np.testing.assert_allclose(db.volumes[s].tsdf.numpy()[obs],
+                                   np.asarray(jdb.volumes[s].tsdf)[obs],
+                                   atol=1e-3)

@@ -27,6 +27,7 @@ from segfusion_tpu_torch import test_fusion as port_entry
 from segfusion_tpu_torch.config import Config
 from segfusion_tpu_torch.utils.convert import fusionnet_from_flax
 from test_torch_utils import jax_mcubes_private  # noqa: F401 (a fixture)
+from tests.test_torch_nets import one_torch_thread  # noqa: F401 (a fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG_SEM = os.path.join(ROOT, "configs", "fusion", "synthetic_semantic.yaml")
@@ -76,22 +77,68 @@ def test_entry_point_matches_jax(tmp_path, monkeypatch, jax_mcubes_private):
                                        cfg.TIMESTAMP, "config.json"))
 
 
+# the ids the cases had while the two checkpoint paths were refused too
+# (those are test_entry_point_loads_checkpoints now)
 @pytest.mark.parametrize("testing,data,error", [
-    ({"sequence_chunk": 1}, {}, NotImplementedError),
-    ({"fusion_model_path": "model.ckpt"}, {}, NotImplementedError),
-    ({}, {"semantic_strategy": "predict"}, ValueError),
-    ({"semantic_2d_model_path": "seg.ckpt"},
-     {"semantic_strategy": "predict"}, NotImplementedError),
-    ({}, {"dataset": "Replica"}, NotImplementedError),
+    pytest.param({"sequence_chunk": 1}, {}, NotImplementedError,
+                 id="testing0-data0-NotImplementedError"),
+    pytest.param({}, {"semantic_strategy": "predict"}, ValueError,
+                 id="testing2-data2-ValueError"),
+    pytest.param({}, {"dataset": "Replica"}, NotImplementedError,
+                 id="testing4-data4-NotImplementedError"),
 ])
 def test_entry_point_refuses_what_is_not_ported(tmp_path, testing, data,
                                                 error):
-    """Per-frame fusion, checkpoint loading and the real datasets are
-    later slices: each raises before any frame is fused."""
+    """Per-frame fusion and the real datasets are later slices, and a
+    predicting segmenter needs its checkpoint: each raises before any
+    frame is fused."""
     cfg = _port_config(tmp_path, **testing)
     cfg.DATA.update(data)
     with pytest.raises(error, match="ROADMAP|semantic_2d_model_path"):
         port_entry.test_fusion(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("which", ["fusion", "segmenter"])
+def test_entry_point_loads_checkpoints(tmp_path, which):
+    """TESTING.fusion_model_path / semantic_2d_model_path: a Flax
+    checkpoint written by the JAX package's ``save_checkpoint`` loads into
+    the port, which then computes exactly what it computes with the same
+    net passed in (AdapNet++ stage 2 predicting the labels for the
+    segmenter case)."""
+    from segfusion_tpu.models.adapnet import AdapNet
+    from segfusion_tpu.utils.checkpoints import save_checkpoint
+    from segfusion_tpu_torch.models.adapnet import SegmenterAdapter
+    from segfusion_tpu_torch.utils.convert import adapnet_from_flax
+    from tests.test_torch_nets import random_variables
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(5)
+    path = str(tmp_path / f"{which}.ckpt")
+    if which == "fusion":
+        fmodel = JPipeline(load_config(CFG_SEM)).fusion_net
+        dummy = {k: jnp.zeros((1, 48, 48, c)) for k, c in (
+            ("tsdf_values", 5), ("tsdf_weights", 5), ("tsdf_frame", 1),
+            ("semantic_frame", 1))}
+        params, stats = random_variables(fmodel, rng, dummy)
+        save_checkpoint({"params": params, "batch_stats": stats, "epoch": 3},
+                        path)
+        cfg = _port_config(tmp_path, fusion_model_path=path)
+        direct = {"fusion_net": fusionnet_from_flax(params, stats,
+                                                    cfg.FUSION_MODEL)}
+    else:
+        x = jnp.zeros((1, 48, 48, 3))
+        params, stats = random_variables(AdapNet(n_classes=8, stage=2), rng,
+                                         x, x)
+        save_checkpoint({"params": params, "batch_stats": stats}, path)
+        cfg = _port_config(tmp_path, semantic_2d_model_path=path)
+        cfg.DATA.semantic_strategy = "predict"
+        cfg.SEMANTIC_2D_MODEL.update(stage=2, n_classes=8)
+        direct = {"segmenter": SegmenterAdapter(adapnet_from_flax(
+            params, stats, cfg.SEMANTIC_2D_MODEL).eval())}
+    loaded = port_entry.test_fusion(cfg, device="cpu")
+    cfg.SETTINGS.experiment_path = str(tmp_path / "direct")
+    cfg.TIMESTAMP = None
+    assert port_entry.test_fusion(cfg, device="cpu", **direct) == loaded
 
 
 class _Frames:
