@@ -67,10 +67,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    chunk, 3 timed chunks, then one ``_peek_rows``; training frames/s, ms
    a chunk and the peak device memory;
 10. the same small training stream (64^3, 32x32, f32, TF32 off, dropout
-   0, 2 chunks of 4 with a reset) on the card and on the CPU (the plain
-   versions): loss, gradients, updated parameters and volume compared
-   (the gradients with cuDNN off: with its f32 convolutions the stream's
-   gradients lose precision, whose error is printed);
+   0, 2 chunks of 4 with a reset) on the card (cuDNN on) and on the CPU
+   (the plain versions): loss, gradients, updated parameters and volume
+   compared;
    then ``segfusion_tpu_torch.train_fusion.train_fusion`` on the
    configuration of configs/fusion/synthetic_small.yaml (1 epoch, 8
    frames), its best.ckpt fed back through ``test_fusion``.
@@ -117,7 +116,11 @@ from segfusion_tpu_torch.ops.kernels import _build
 from segfusion_tpu_torch.ops.kernels import median3d as k5
 from segfusion_tpu_torch.ops.kernels import shadow_build as sb
 from segfusion_tpu_torch.probes import _lib as probe_lib
+from segfusion_tpu_torch import seg_quality_demo as seg_demo
+from segfusion_tpu_torch import test_segmentation as seg_test
+from segfusion_tpu_torch import train_segmentation as seg_train
 from segfusion_tpu_torch.train_fusion import train_fusion
+from segfusion_tpu_torch.utils.losses import cross_entropy
 from segfusion_tpu_torch.utils.optim import get_optimizer
 from segfusion_tpu_torch.utils.schedulers import get_schedule
 from segfusion_tpu_torch.probes import (dynamic_gather, pallas_caps,
@@ -1425,16 +1428,21 @@ def small_training_run(cfg, dev, frames, resets, dtype=None):
     """2 chunks of 4 over an empty 64^3 volume, the net in ``dtype``
     (default: the configured one): (chunk losses, the first chunk's
     gradients, the parameters and their change after both updates, the
-    exited volume), on the host."""
+    exited volume, ms a chunk), on the host; ms from the host clock
+    around the chunks, synchronised on a card."""
     pipe, layout, stream, gt_shadow, opt = trainer(cfg, dev, 64, seed=3)
     if dtype is not None:     # in place: the optimizer keeps its tensors
         pipe.fusion_net.to(dtype)
         pipe.fusion_net.compute_dtype = dtype
     params0 = torch.cat([p.detach().reshape(-1).cpu()
                          for p in pipe.fusion_net.parameters()])
-    losses, grads = [], None
+    losses, grads, seconds = [], None, 0.0
+    on_card = torch.device(dev).type == "cuda"
     for c in range(2):
         fr = {k: v[4 * c:4 * c + 4].to(dev) for k, v in frames.items()}
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
         opt.zero_grad()
         loss, stream = pipe.train_sequence_rows(layout, stream, gt_shadow,
                                                 fr, resets[4 * c:4 * c + 4])
@@ -1443,72 +1451,56 @@ def small_training_run(cfg, dev, frames, resets, dtype=None):
                                for p in pipe.fusion_net.parameters()])
         opt.step()
         losses.append(float(loss))
+        seconds += time.perf_counter() - t0
     params = torch.cat([p.detach().reshape(-1).cpu()
                         for p in pipe.fusion_net.parameters()])
     out = pipe._exit_rows(layout, stream.rv)
-    return losses, grads, params, params - params0, out
+    return losses, grads, params, params - params0, out, 500.0 * seconds
 
 
 def training_reference(dev):
-    """Phase 10: the same small training stream on the card and on the
-    CPU (plain versions): 64^3, 32x32, f32 nets, TF32 off, dropout 0, 2
-    chunks of 4 with a reset before the second chunk's third frame, the
-    phase-9 optimizer with the SGD rule (momentum 0.9) at lr 1e-4: rmsprop
-    scales each element's step to about lr whatever its gradient, so an
-    element whose gradient is rounding noise around 0 (a bias ahead of a
-    BatchNorm) steps a full lr of either sign on either device, while
-    SGD's step carries the gradients' agreement (rmsprop is held to optax
-    on the CPU by the tests and runs here in phase 9).
+    """Phase 10: the same small training stream on the card, as users run
+    it (cuDNN on), and on the CPU (plain versions): 64^3, 32x32, f32 nets,
+    TF32 off, dropout 0, 2 chunks of 4 with a reset before the second
+    chunk's third frame, the phase-9 optimizer with the SGD rule
+    (momentum 0.9) at lr 1e-4: rmsprop scales each element's step to
+    about lr whatever its gradient, so an element whose gradient is
+    rounding noise around 0 (a bias ahead of a BatchNorm) steps a full lr
+    of either sign on either device, while SGD's step carries the
+    gradients' agreement (rmsprop is held to optax on the CPU by the tests
+    and runs here in phase 9).
 
-    With cuDNN's f32 convolutions this stream's gradients lie 0.375
-    (relative L2) from a float64 run's, 0.0022 with cuDNN off and 0.0018
-    on the CPU (tools/training_precision.py, H100 80GB HBM3 at 700 W):
-    BatchNorm over the nearly constant channels of an empty volume's
-    first frames amplifies the rounding (PERF.md §7). So the gradients
-    and the updated parameters are held with cuDNN off, and the run as
-    users run it (cuDNN on) on its first chunk's loss (rtol 1e-3; it
-    moved 2.3e-5 with cuDNN) and the volume's weights, its errors
-    printed. Tolerances
-    (measured CPU f32 against CPU f64 beside them): the losses within
-    rtol 1e-5 (2e-7); the first chunk's gradients within 1e-2 of the
-    largest (1.0e-3); the parameters within 1e-2 of the update's L2 norm
-    (0.0055); the volume as phase 6: weights atol 1e-3 + rtol 1e-3, tsdf
-    1e-3 where the weight exceeds 0.05 (8.5e-6)."""
+    BatchNorm's variance takes two passes (``models/layers.py``): with
+    the one pass ``mean(x^2) - mean^2`` the card's gradients lay 0.375
+    (relative L2) from a float64 run's with cuDNN's convolutions
+    (tools/training_precision.py). Tolerances (measured CPU f32 against
+    CPU f64 beside them): the losses within rtol 1e-5 (2e-7); the
+    first chunk's gradients within 1e-2 of the largest (1.0e-3); the
+    parameters within 1e-2 of the update's L2 norm (0.0055); the volume
+    as phase 6: weights atol 1e-3 + rtol 1e-3, tsdf 1e-3 where the weight
+    exceeds 0.05 (8.5e-6)."""
     cfg = small_train_config("sgd")
     frames = with_labels(render_frames(8, 32, 32, "cpu"))
     resets = [False] * 6 + [True, False]
-    ref = small_training_run(cfg, "cpu", frames, resets)
-    with torch.backends.cudnn.flags(enabled=False):
-        exact = small_training_run(cfg, dev, frames, resets)
-    users = small_training_run(cfg, dev, frames, resets)
-    l_ref, g_ref, p_ref, step, v_ref = ref
+    l_ref, g_ref, p_ref, step, v_ref, _ = small_training_run(
+        cfg, "cpu", frames, resets)
+    losses, g, p, _, v, ms = small_training_run(cfg, dev, frames, resets)
     obs = v_ref.weights > 0.05
-
-    def errors(run):
-        losses, g, p, _, v = run
-        return {"losses": losses,
-                "grad": float((g - g_ref).abs().max() / g_ref.abs().max()),
-                "grad_l2": float((g - g_ref).norm() / g_ref.norm()),
-                "param_l2": float((p - p_ref).norm() / step.norm()),
-                "w": float((v.weights.cpu() - v_ref.weights).abs().max()),
-                "tsdf": float((v.tsdf.cpu()[obs] - v_ref.tsdf[obs])
-                              .abs().max())}
-
-    e_exact, e_users = errors(exact), errors(users)
-    log(f"training reference (card vs CPU plain path, 64^3, 2 chunks of 4, "
-        f"{int(obs.sum())} observed voxels; CPU losses {l_ref}): cuDNN off "
-        f"{e_exact}; cuDNN on {e_users}")
-
-    def volume_ok(run):
-        return (torch.allclose(run[4].weights.cpu(), v_ref.weights,
-                               atol=1e-3, rtol=1e-3)
-                and errors(run)["tsdf"] <= 1e-3)
-    ok = (np.allclose(e_exact["losses"], l_ref, rtol=1e-5)
-          and e_exact["grad"] <= 1e-2 and e_exact["param_l2"] <= 1e-2
-          and volume_ok(exact) and int(obs.sum()) > 1000
-          and np.allclose(e_users["losses"][0], l_ref[0], rtol=1e-3)
-          and torch.allclose(users[4].weights.cpu(), v_ref.weights,
-                             atol=1e-3, rtol=1e-3))
+    errors = {"losses": losses,
+              "grad": float((g - g_ref).abs().max() / g_ref.abs().max()),
+              "grad_l2": float((g - g_ref).norm() / g_ref.norm()),
+              "param_l2": float((p - p_ref).norm() / step.norm()),
+              "w": float((v.weights.cpu() - v_ref.weights).abs().max()),
+              "tsdf": float((v.tsdf.cpu()[obs] - v_ref.tsdf[obs])
+                            .abs().max())}
+    log(f"training reference (card with cuDNN vs CPU plain path, 64^3, 2 "
+        f"chunks of 4, {int(obs.sum())} observed voxels; CPU losses "
+        f"{l_ref}): {errors}; {ms:.2f} ms a chunk on the card")
+    ok = (np.allclose(losses, l_ref, rtol=1e-5)
+          and errors["grad"] <= 1e-2 and errors["param_l2"] <= 1e-2
+          and torch.allclose(v.weights.cpu(), v_ref.weights, atol=1e-3,
+                             rtol=1e-3)
+          and errors["tsdf"] <= 1e-3 and int(obs.sum()) > 1000)
     if not ok:
         raise RuntimeError("card and CPU training disagree on the small "
                            "input")
@@ -1582,6 +1574,268 @@ def train_entry_point(dev):
     return counts
 
 
+# -- phases 11-13: segmentation -----------------------------------------------
+
+def seg_config(path: str, stage: int = 1, input_key: str = "tof_depth",
+               **pretrained):
+    """configs/segmentation/replica_{depth,rgb,multi}.yaml's model and
+    optimizer built in Python (the card's machine has no PyYAML):
+    AdapNet++ at ResNet-50 widths, 30 classes, bf16 compute on f32
+    master weights, batch 8, sgd at lr 0.005 (momentum 0.9, weight decay
+    5e-4), poly_lr, num_workers 8 (the port's loader decodes in one
+    background thread); on Synthetic 256x256 frames (Replica is not in
+    the repo), 3 epochs of 4 steps (32 frames of one scene), 2 strips."""
+    return Config({
+        "SETTINGS": {"num_workers": 8, "experiment_path": path,
+                     "seed": 1911},
+        "SEMANTIC_2D_MODEL": {"name": "adapnet", "stage": stage,
+                              "n_classes": 30, "compute_dtype": "bfloat16",
+                              **pretrained},
+        "TRAINING": {"train_batch_size": 8, "train_shuffle": True,
+                     "val_batch_size": 4, "n_epochs": 3,
+                     "optimizer": {"name": "sgd", "lr": 0.005,
+                                   "nesterov": True, "momentum": 0.9,
+                                   "weight_decay": 0.0005},
+                     "scheduler": {"name": "poly_lr", "max_iter": 50},
+                     "optimization": {"random_mask": stage == 2,
+                                      "mask_prob": 0.25}},
+        "TESTING": {"test_batch_size": 1, "n_visualizations": 2},
+        "DATA": {"dataset": "Synthetic", "input": input_key,
+                 "target": "semantic_gt", "semantics": "class30",
+                 "resx": 256, "resy": 256, "n_frames": 32, "n_scenes": 1,
+                 "voxel_resolution": 0.1, "noise_sigma": 0.01,
+                 "init_value": 0.1, "pad": 2}})
+
+
+def moved(model, cfg):
+    """(largest parameter move, largest running-statistic move) of a
+    trained AdapNet from the weights it started from."""
+    start = seg_train.new_adapnet(cfg.SEMANTIC_2D_MODEL,
+                                  int(cfg.SETTINGS.seed))
+    seg_train._initial_weights(start, cfg.SEMANTIC_2D_MODEL, _Quiet())
+    now, then = model.state_dict(), start.state_dict()
+    par = max(float((now[k].cpu() - then[k]).abs().max())
+              for k, _ in start.named_parameters())
+    run = max(float((now[k].cpu() - then[k]).abs().max())
+              for k in then if "running" in k)
+    return par, run
+
+
+class _Quiet:
+    """A workspace stand-in for ``_initial_weights``."""
+
+    def log(self, msg, mode="train"):
+        pass
+
+
+def segmentation(dev, root: str):
+    """Phase 11: stage 1 on tof_depth, stage 1 on image, stage 2 with the
+    transplant from those two best checkpoints and random masking; each
+    printed with images/s and ms a step after the first epoch, the peak
+    device memory, its losses and how far its weights moved. Returns the
+    stage-2 and the tof stage-1 best.ckpt."""
+    best = {}
+    for name, stage, key, pre in (
+            ("stage 1 tof", 1, "tof_depth", {}),
+            ("stage 1 rgb", 1, "image", {}),
+            ("stage 2 rgb+tof", 2, "tof_depth", None)):
+        if pre is None:
+            pre = {"pretrained_rgb": best["stage 1 rgb"],
+                   "pretrained_tof": best["stage 1 tof"]}
+        cfg = seg_config(os.path.join(root, name.replace(" ", "_")), stage,
+                         key, **pre)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model, ws, hist = seg_train.train_segmentation(cfg, dev, name)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        steps = sum(hist["steps"][1:])
+        secs = sum(hist["train_seconds"][1:])
+        par, run = moved(model, cfg)
+        losses = hist["train_loss"]
+        log(f"segmentation {name} (AdapNet++ stage {stage}, 256x256, "
+            f"batch 8, bf16 on f32 master weights, sgd + poly_lr): "
+            f"{8 * steps / secs:.2f} images/s, {1e3 * secs / steps:.1f} ms "
+            f"a step after the first epoch (first epoch "
+            f"{hist['train_seconds'][0]:.2f} s, all {total:.2f} s); peak "
+            f"device memory {peak:.2f} GiB; losses {losses}; val mIoU "
+            f"{[round(m['Mean IoU'], 4) for m in hist['val']]}; largest "
+            f"parameter move {par:.3g}, running statistics {run:.3g}")
+        if (not all(np.isfinite(losses)) or losses[-1] >= losses[0]
+                or par == 0 or run == 0):
+            raise RuntimeError(f"segmentation {name}: non-finite or "
+                               "rising loss, or the weights did not move")
+        best[name] = os.path.join(ws.model_path, "best.ckpt")
+        if not os.path.exists(best[name]):
+            raise RuntimeError(f"segmentation {name}: no best.ckpt")
+        del model
+        torch.cuda.empty_cache()
+    return best["stage 2 rgb+tof"], best["stage 1 tof"]
+
+
+def segmentation_test(dev, root: str, ckpt: str):
+    """Phase 11b: ``test_segmentation`` on the stage-2 best.ckpt."""
+    cfg = seg_config(os.path.join(root, "test"), 2, "tof_depth")
+    cfg.TESTING.semantic_2d_model_path = ckpt
+    t0 = time.perf_counter()
+    metrics = seg_test.test_segmentation(cfg, dev)
+    vis = os.path.join(cfg.SETTINGS.experiment_path, cfg.TIMESTAMP,
+                       "output", "vis")
+    files = sorted(os.listdir(vis))
+    log(f"test_segmentation (stage 2, 32 frames): "
+        f"{time.perf_counter() - t0:.2f} s; {metrics}; strips {files}")
+    sizes = {os.path.getsize(os.path.join(vis, f)) for f in files}
+    if (files != ["0000.png", "0001.png"] or min(sizes) == 0
+            or not all(np.isfinite(v) for v in metrics.values())):
+        raise RuntimeError("test_segmentation: missing strips or "
+                           "non-finite metrics")
+
+
+def predict_entry_point(dev, seg_ckpt: str):
+    """Phase 11c: ``test_fusion`` with ``semantic_strategy: predict``,
+    the stage-1 tof checkpoint of phase 11 as the segmenter (the
+    reference's train-then-fuse workflow), on phase 8's configuration
+    with 30 classes; returns the launch counts."""
+    cfg = default_config()
+    cfg.SETTINGS.update(save_mode="ply", num_workers=0)
+    cfg.FUSION_MODEL.update(name="v3", n_points=9, n_tail_points=7,
+                            growth_factor=6, use_semantics=True,
+                            compute_dtype="bfloat16")
+    cfg.SEMANTIC_2D_MODEL.update(stage=1, n_classes=30,
+                                 compute_dtype="bfloat16")
+    cfg.TESTING.update(outlier_filter_val=1, semantic_2d_model_path=seg_ckpt)
+    cfg.DATA.update(dataset="Synthetic", semantics="class30",
+                    semantic_strategy="predict", semantic_grid=True,
+                    input="tof_depth", resx=256, resy=256, n_frames=16,
+                    n_scenes=1, voxel_resolution=0.05, noise_sigma=0.01,
+                    init_value=0.24, pad=2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_predict_") as path:
+        cfg.SETTINGS.experiment_path = path
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = entry.test_fusion(cfg, dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    log(f"test_fusion with the stage-1 tof segmenter predicting (16 frames, "
+        f"30 classes): {time.perf_counter() - t0:.3f} s; launches {counts}")
+    log(f"  eval_results {json.dumps(results)}")
+    bad = [k for k, v in results.items() if not np.isfinite(v)]
+    if bad or len(results) != 9:
+        raise RuntimeError(f"test_fusion (predict): missing or non-finite "
+                           f"metrics {bad or results}")
+    require(counts, ["median_filter3d", "build_shadow_dirty",
+                     "reconcile_slot", "reconcile_key"], "test_fusion predict")
+    return counts
+
+
+def seg_step(model, x, y, lr=0.005):
+    """One stage-1 train step: the trainer's loss, its gradients, one SGD
+    update (momentum 0.9, weight decay 5e-4); (loss, flat gradients, flat
+    parameters after the update, flat running statistics), on the host."""
+    opt = get_optimizer(Config({"name": "sgd", "momentum": 0.9,
+                                "weight_decay": 0.0005}), model,
+                        get_schedule(lr, None))
+    outs = model.train()(x)
+    loss = sum(lw * cross_entropy(o.permute(0, 2, 3, 1), y, ignore_index=0)
+               for lw, o in zip(seg_train.LOSS_WEIGHTS, outs))
+    loss.backward()
+
+    def flat(ts):
+        return torch.cat([t.detach().reshape(-1).double().cpu() for t in ts])
+    grads = flat(p.grad for p in model.parameters())
+    opt.step()
+    return (float(loss.detach()), grads, flat(model.parameters()),
+            flat(b for n, b in model.named_buffers() if "running" in n))
+
+
+def segmentation_reference(dev):
+    """Phase 12: one stage-1 train step (32x32 Synthetic depth frames,
+    batch 2, 4 classes, the layer3 dropout off, f32, TF32 off) on the
+    card (cuDNN on, as the trainer runs it) and on the CPU, and in float64
+    on the CPU, from one seeded init.
+    The f32 gradients of this random net are ill-conditioned (JAX's own
+    lie 0.16 of the largest from float64 at this size;
+    tests/test_torch_adapnet.py), so the card is held to float64 within
+    twice the CPU's f32 distance from it, plus a floor: the loss
+    (relative; floor 1e-5), the gradients (over the largest; 1e-3), the
+    parameters after one SGD step (over the update's largest; 1e-3) and
+    the running statistics (1e-4). Measured (H100 80GB HBM3, 700 W): the
+    CPU's f32 loss 2.5e-5 from float64, the gradients 0.111, the
+    parameters 0.111, the statistics 2.6e-4; the card's 2.0e-5, 0.150,
+    0.150 and 3.2e-4 with cuDNN's convolutions (0.146 with cuDNN off:
+    unlike FusionNet's, this step keeps them)."""
+    cfg = Config({"n_classes": 4, "stage": 1, "resn50_dropout": False})
+    data = Synthetic(Config({"resx": 32, "resy": 32, "n_frames": 2,
+                             "voxel_resolution": 0.1}), device="cpu")
+    x = torch.stack([torch.as_tensor(data[i]["tof_depth"])
+                     for i in range(2)])[:, None].expand(-1, 3, -1, -1)
+    y = torch.stack([torch.as_tensor(data[i]["semantic_gt"]).long()
+                     for i in range(2)])
+    init = seg_train.new_adapnet(cfg, 5)
+    runs = {}
+    for name, d, dt in (("f64", "cpu", torch.float64),
+                        ("cpu", "cpu", torch.float32),
+                        ("card", dev, torch.float32)):
+        model = copy.deepcopy(init).to(d, dt)
+        runs[name] = seg_step(model, x.to(d, dt), y.to(d))
+    ref = runs["f64"]
+    step = (ref[2] - torch.cat([p.detach().reshape(-1).double()
+                                for p in init.parameters()])).abs().max()
+
+    def errors(run):
+        return {"loss": abs(run[0] - ref[0]) / abs(ref[0]),
+                "grad": float((run[1] - ref[1]).abs().max()
+                              / ref[1].abs().max()),
+                "params": float((run[2] - ref[2]).abs().max() / step),
+                "stats": float((run[3] - ref[3]).abs().max())}
+    e_cpu, e_card = errors(runs["cpu"]), errors(runs["card"])
+    log(f"segmentation reference (stage 1, 32x32, batch 2, one SGD step; "
+        f"against CPU float64): card {e_card}; CPU f32 {e_cpu}; losses "
+        f"card {runs['card'][0]}, CPU {runs['cpu'][0]}")
+    floor = {"loss": 1e-5, "grad": 1e-3, "params": 1e-3, "stats": 1e-4}
+    far = [k for k in e_card if e_card[k] > 2 * e_cpu[k] + floor[k]]
+    if far:
+        raise RuntimeError(f"segmentation step: card and CPU disagree on "
+                           f"{far}")
+
+
+def seg_quality(dev, root: str):
+    """Phase 13: ``seg_quality_demo`` on configs/segmentation/
+    synthetic_tpu_demo.yaml built in Python: stage-1 AdapNet++ on
+    128x128 depth, 8 classes, 3 scenes of 24 frames, 4 epochs, sgd at lr
+    0.01; the trained best.ckpt's unseen-scene mIoU at least twice the
+    random init's."""
+    cfg = Config({
+        "SETTINGS": {"num_workers": 0, "seed": 1911,
+                     "experiment_path": os.path.join(root, "seg_demo")},
+        "SEMANTIC_2D_MODEL": {"name": "adapnet", "stage": 1,
+                              "n_classes": 8},
+        "TRAINING": {"train_batch_size": 4, "train_shuffle": True,
+                     "val_batch_size": 4, "n_epochs": 4,
+                     "optimizer": {"name": "sgd", "lr": 0.01,
+                                   "momentum": 0.9, "weight_decay": 0.0001},
+                     "scheduler": {"name": "poly_lr", "max_iter": 400},
+                     "optimization": {"random_mask": False,
+                                      "mask_prob": 0.1}},
+        "TESTING": {"n_visualizations": 0},
+        "DATA": {"dataset": "Synthetic", "semantics": "class8",
+                 "input": "tof_depth", "target": "depth_gt",
+                 "target_seg": "semantic_gt", "resx": 128, "resy": 128,
+                 "n_frames": 24, "n_scenes": 3, "voxel_resolution": 0.05,
+                 "noise_sigma": 0.004, "init_value": 0.24, "pad": 2}})
+    t0 = time.perf_counter()
+    rand, trained, _ = seg_demo.seg_quality_demo(cfg, dev)
+    log(f"seg quality demo (synthetic_tpu_demo): val mIoU on an unseen "
+        f"scene, trained {trained['Mean IoU']:.4f} against random init "
+        f"{rand['Mean IoU']:.4f}; {time.perf_counter() - t0:.2f} s")
+    if not trained["Mean IoU"] >= 2 * rand["Mean IoU"]:
+        raise RuntimeError("seg quality demo: the trained mIoU is not twice "
+                           "the random init's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1624,6 +1878,16 @@ def main() -> int:
             launches[k] += n
         torch.cuda.empty_cache()
     training_reference(dev)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_") as root:
+        stage2, tof = segmentation(dev, root)
+        segmentation_test(dev, root, stage2)
+        for k, n in predict_entry_point(dev, tof).items():
+            launches[k] += n
+        segmentation_reference(dev)
+        seg_quality(dev, root)
+    log(f"phases 11-13 (segmentation): {time.perf_counter() - t0:.1f} s")
 
     replaces = {"build_shadow_dirty": f"{PALLAS}:359",
                 "build_shadow": f"{PALLAS}:254",

@@ -1,8 +1,8 @@
 """Config: attribute-accessible nested dict with the slice's defaults.
 
 Port of ``segfusion_tpu/config.py`` for the sections the inference,
-evaluation and training slices read. ``yaml`` is imported only by
-:func:`load_config`.
+evaluation, fusion-training and segmentation slices read. ``yaml`` is
+imported only by :func:`load_config`.
 """
 
 from __future__ import annotations
@@ -83,7 +83,8 @@ _DEFAULTS = {
         "scheduler": {"name": "poly_lr", "max_iter": 50000},
         "loss": {"name": "fusion", "w_l1": 1.0, "w_l2": 10.0, "w_cos": 0.1},
         "optimization": {"reset_strategy": False, "reset_prob": 0.01,
-                         "clipping": True, "accumulation_steps": 8},
+                         "clipping": True, "accumulation_steps": 8,
+                         "random_mask": False, "mask_prob": 0.1},
     },
     "TESTING": {
         "test_batch_size": 1,
@@ -94,6 +95,8 @@ _DEFAULTS = {
         "sequence_chunk": 16,
         "fusion_model_path": None,
         "semantic_2d_model_path": None,
+        "n_visualizations": 10,
+        "output_benchmark": False,
     },
     "DATA": {
         "dataset": "Synthetic",
@@ -120,15 +123,27 @@ def _merge_defaults(cfg: Config, defaults: Mapping) -> Config:
     return cfg
 
 
+def _complete(cfg: Config) -> Config:
+    """Defaults, then the keys the segmentation CLIs derive: the
+    reference's SEMANTIC_MODEL section read as SEMANTIC_2D_MODEL, and
+    DATA.target_key (the segmentation target) from DATA.target_seg."""
+    if "SEMANTIC_MODEL" in cfg and "SEMANTIC_2D_MODEL" not in cfg:
+        cfg["SEMANTIC_2D_MODEL"] = cfg["SEMANTIC_MODEL"]
+    _merge_defaults(cfg, _DEFAULTS)
+    if not cfg.DATA.get("target_key"):
+        cfg.DATA.target_key = cfg.DATA.get("target_seg") or "semantic_gt"
+    return cfg
+
+
 def default_config() -> Config:
     """A config holding only the defaults."""
-    return _merge_defaults(Config({}), _DEFAULTS)
+    return _complete(Config({}))
 
 
 def with_defaults(cfg: Config) -> Config:
-    """Fill the defaults into ``cfg`` where a key is missing or None, in
-    place; returns ``cfg``."""
-    return _merge_defaults(cfg, _DEFAULTS)
+    """Fill the defaults into ``cfg`` where a key is missing or None, and
+    the derived keys of :func:`_complete`, in place; returns ``cfg``."""
+    return _complete(cfg)
 
 
 # mode -> (DATA scene-list key, config section, frame-ratio key)
@@ -160,7 +175,4 @@ def load_config(path: str) -> Config:
         raise FileNotFoundError(f"config file not found: {path}")
     with open(path) as f:
         raw: Any = yaml.safe_load(f) or {}
-    cfg = Config(raw)
-    if "SEMANTIC_MODEL" in cfg and "SEMANTIC_2D_MODEL" not in cfg:
-        cfg["SEMANTIC_2D_MODEL"] = cfg["SEMANTIC_MODEL"]
-    return _merge_defaults(cfg, _DEFAULTS)
+    return _complete(Config(raw))

@@ -35,6 +35,7 @@ import torch
 from ..device import resolve_device
 from ..models import seeded_init
 from ..models.fusionnet import build_fusion_net
+from ..models.layers import training_convolutions
 from ..ops import geometry
 from ..ops import rowvol
 from ..ops.integrate import pack_semantic_key
@@ -396,7 +397,9 @@ class Pipeline:
         statistics move, an all-masked padding frame's too. The caller
         zeroes the gradients and steps the optimizer once per chunk.
         Returns ``(loss_sum, stream)``; the slot state and the gt shadow
-        stay the caller's, carried across chunks."""
+        stay the caller's, carried across chunks. A float32 net on a card
+        trains with cuDNN off (``models/layers.training_convolutions``).
+        """
         if self.use_semantics:
             with torch.no_grad():
                 frames = self._sem_prepass_frames(frames)
@@ -404,17 +407,20 @@ class Pipeline:
         loss_sum = torch.zeros((), device=self.device)
         self.fusion_net.train()
         try:
-            for i in range(T):
-                if bool(reset_flags[i]):
-                    stream = self._reset_stream(stream)
-                frame = {key: x[i:i + 1] for key, x in frames.items()}
-                carry = (None if stream.shadow is None
-                         else (stream.shadow, stream.dirty))
-                loss, rv, carry = self.step_train_rows_impl(
-                    layout, stream.rv, gt_shadow, frame, shadow_carry=carry)
-                stream = (RowStream(rv, None, None) if carry is None
-                          else RowStream(rv, carry[0], carry[1]))
-                loss_sum = loss_sum + loss
+            with training_convolutions(self.fusion_net.compute_dtype,
+                                       self.device):
+                for i in range(T):
+                    if bool(reset_flags[i]):
+                        stream = self._reset_stream(stream)
+                    frame = {key: x[i:i + 1] for key, x in frames.items()}
+                    carry = (None if stream.shadow is None
+                             else (stream.shadow, stream.dirty))
+                    loss, rv, carry = self.step_train_rows_impl(
+                        layout, stream.rv, gt_shadow, frame,
+                        shadow_carry=carry)
+                    stream = (RowStream(rv, None, None) if carry is None
+                              else RowStream(rv, carry[0], carry[1]))
+                    loss_sum = loss_sum + loss
         finally:
             self.fusion_net.eval()
         return loss_sum, stream

@@ -39,25 +39,34 @@ class PrefetchLoader:
     dicts) in batches, decoded by one background thread when
     ``num_workers`` > 0 (0: in the caller's thread). Batches of one frame
     are collated; larger ones stack array fields along a new axis 0.
-    ``shuffle`` permutes the indices with a seeded generator, anew for each
-    pass."""
+    ``shuffle`` permutes the indices with ``RandomState(seed + pass)``,
+    anew for each pass; ``drop_last`` leaves out a last batch short of
+    ``batch_size``."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
-                 num_workers: int = 2):
+                 num_workers: int = 2, seed: int = 0,
+                 drop_last: bool = False):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.num_workers = int(num_workers)
+        self.seed = int(seed)
+        self.drop_last = drop_last
         self._epoch = 0
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
 
     def _indices(self):
         idx = np.arange(len(self.dataset))
         if self.shuffle:
-            np.random.RandomState(self._epoch).shuffle(idx)
+            np.random.RandomState(self.seed + self._epoch).shuffle(idx)
         self._epoch += 1
+        if self.drop_last:
+            idx = idx[:len(idx) // self.batch_size * self.batch_size]
         return idx
 
     def _make_batch(self, batch_idx: Sequence[int]) -> dict:

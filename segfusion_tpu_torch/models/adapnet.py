@@ -1,37 +1,61 @@
-"""AdapNet++ stage 2: RGB + depth semantic segmentation.
+"""AdapNet++ semantic segmentation, stages 1 and 2.
 
-Port of ``segfusion_tpu/models/adapnet.py`` (stage 2, the model of the
-joint headline; stage 1 comes with the segmentation CLIs): two
-multi-dilation ResNet-50 encoders (built by hand), eASPP, SSMA fusion and
-the 3-stage decoder with gated skips.
+Port of ``segfusion_tpu/models/adapnet.py``: the multi-dilation ResNet-50
+encoder (built by hand), eASPP, SSMA fusion and the 3-stage decoder with
+its two auxiliary heads. Stage 1 segments one modality (``encoder_mod1``
+-> ``eASPP`` -> decoder with plain skips); stage 2 fuses an RGB and a
+depth encoder by SSMA at the bottleneck and both skips, the decoder
+gating each skip by the global context of its features.
+
 Submodules carry the Flax auto-names so ``utils/convert.py`` loads a Flax
 tree by name. Flax's ``ConvTranspose(padding="SAME")`` applies its kernel
-unflipped; here it is ``nn.ConvTranspose2d`` with ``padding=(k - s) // 2``
-and the converter flips the kernel. The decoder's two auxiliary heads
-only serve training: their parameters are kept (and loaded) but not
-evaluated.
+unflipped; here it is a transposed convolution with ``padding=(k - s) //
+2`` and the converter flips the kernel. The layers are those of
+``models/layers.py`` (BatchNorm with Flax's momentum 0.9 here, per-element
+dropout), so the net trains as the Flax module does: f32 master weights
+computing in ``compute_dtype`` (bf16 for the configured runs), f32
+BatchNorm statistics, the layer3[2] dropout drawn from the generator
+given to :meth:`AdapNet.set_dropout_generator`. ``forward`` returns
+``[res, aux1, aux2]`` in f32, the aux heads upsampled bilinearly with
+half-pixel centres (``jax.image.resize``'s "bilinear");
+:meth:`AdapNet.logits` computes ``res`` alone.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import (BatchNorm, Conv2d, ConvTranspose2d, Dropout,
+                     set_dropout_generator)
+
 __all__ = ["Bottleneck", "BottleneckSSMA", "Encoder", "EASPP", "Decoder",
            "SSMA", "AdapNet", "build_adapnet", "SegmenterAdapter"]
 
+_BN_MOMENTUM = 0.9   # the JAX package's _bn: Flax momentum 0.9
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+
+def _bn(ch: int) -> BatchNorm:
+    return BatchNorm(ch, momentum=_BN_MOMENTUM)
 
 
 def _conv(ci, co, k, stride=1, dil=1, bias=True):
     pad = dil * (k - 1) // 2
-    return nn.Conv2d(ci, co, k, stride=stride, padding=pad, dilation=dil,
-                     bias=bias)
+    return Conv2d(ci, co, k, stride=stride, padding=pad, dilation=dil,
+                  bias=bias)
+
+
+def upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """``jax.image.resize(..., "bilinear")`` by an integer ``factor``
+    over NCHW: half-pixel centres, the edge rows taking the border value
+    (JAX renormalises the in-range weights, torch clamps the source
+    index: the same numbers)."""
+    h, w = x.shape[-2:]
+    return F.interpolate(x, size=(h * factor, w * factor), mode="bilinear",
+                         align_corners=False)
 
 
 class Bottleneck(nn.Module):
@@ -64,7 +88,8 @@ class Bottleneck(nn.Module):
 
 class BottleneckSSMA(nn.Module):
     """Multi-dilation unit: 1x1 -> two parallel dilated 3x3 branches
-    (r1, r2) of d3/2 channels each -> concat -> 1x1 to ``out``."""
+    (r1, r2) of d3/2 channels each -> concat -> 1x1 to ``out``, then
+    (``drop_out``) per-element dropout."""
 
     def __init__(self, in_ch: int, mid: int, r1: int, r2: int, d3: int,
                  out: int, project: bool = False, drop_out: bool = False,
@@ -83,7 +108,8 @@ class BottleneckSSMA(nn.Module):
         if self.has_down:
             self.downsample_conv = _conv(in_ch, out, 1, bias=False)
             self.BatchNorm_4 = _bn(out)
-        self.drop = nn.Dropout(drop_rate) if drop_out else nn.Identity()
+        self.drop = (Dropout(drop_rate, per_channel=False) if drop_out
+                     else nn.Identity())
 
     def forward(self, x):
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -101,7 +127,7 @@ class Encoder(nn.Module):
 
     def __init__(self, resn50_dropout: bool = True):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.Conv_0 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.BatchNorm_0 = _bn(64)
         blocks = [(64, 64, 1, True), (256, 64, 1, False),
                   (256, 64, 1, False), (256, 128, 2, False),
@@ -120,9 +146,9 @@ class Encoder(nn.Module):
         for i, (ci, mid, r1, r2, d3, out, proj, drop) in enumerate(ssma):
             self.add_module(f"BottleneckSSMA_{i}", BottleneckSSMA(
                 ci, mid, r1, r2, d3, out, project=proj, drop_out=drop))
-        self.Conv_1 = nn.Conv2d(256, 24, 1)
+        self.Conv_1 = Conv2d(256, 24, 1)
         self.BatchNorm_1 = _bn(24)
-        self.Conv_2 = nn.Conv2d(512, 24, 1)
+        self.Conv_2 = Conv2d(512, 24, 1)
         self.BatchNorm_2 = _bn(24)
 
     def forward(self, x):
@@ -150,7 +176,7 @@ class EASPP(nn.Module):
                  rates: Sequence[int] = (3, 6, 12)):
         super().__init__()
         self.rates = tuple(rates)
-        self.Conv_0 = nn.Conv2d(in_ch, out, 1)
+        self.Conv_0 = Conv2d(in_ch, out, 1)
         self.BatchNorm_0 = _bn(out)
         for r_i, r in enumerate(self.rates):
             k = 1 + 4 * r_i
@@ -160,9 +186,9 @@ class EASPP(nn.Module):
                 self.add_module(f"Conv_{k + j}", _conv(ci, co, ks, dil=dil))
                 self.add_module(f"BatchNorm_{k + j}", _bn(co))
         n = 1 + 4 * len(self.rates)
-        self.add_module(f"Conv_{n}", nn.Conv2d(in_ch, out, 1))  # pooling
+        self.add_module(f"Conv_{n}", Conv2d(in_ch, out, 1))  # pooling
         self.add_module(f"Conv_{n + 1}",
-                        nn.Conv2d(out * (2 + len(self.rates)), out, 1))
+                        Conv2d(out * (2 + len(self.rates)), out, 1))
         self.add_module(f"BatchNorm_{n}", _bn(out))
 
     def forward(self, x):
@@ -183,51 +209,61 @@ class EASPP(nn.Module):
 
 
 class Decoder(nn.Module):
-    """3-stage decoder with two skips, each gated by the global context of
-    the decoder features. Returns the full-resolution logits (f32)."""
+    """3-stage decoder with two skips and two aux heads (1x1 conv + BN,
+    upsampled x8 and x4). ``fusion`` (stage 2) gates each skip by the
+    global context of the decoder features (``fuse_conv1/2``)."""
 
-    def __init__(self, n_classes: int):
+    def __init__(self, n_classes: int, fusion: bool = False):
         super().__init__()
-        self.ConvTranspose_0 = nn.ConvTranspose2d(256, 256, 4, 2, 1)
+        self.fusion = fusion
+        self.ConvTranspose_0 = ConvTranspose2d(256, 256, 4, 2, 1)
         self.BatchNorm_0 = _bn(256)
-        self.Conv_0 = nn.Conv2d(256, n_classes, 1)        # aux head 1
+        self.Conv_0 = Conv2d(256, n_classes, 1)           # aux head 1
         self.BatchNorm_1 = _bn(n_classes)
-        self.fuse_conv1 = nn.Conv2d(256, 24, 1)
-        self.fuse_conv2 = nn.Conv2d(256, 24, 1)
+        if fusion:
+            self.fuse_conv1 = Conv2d(256, 24, 1)
+            self.fuse_conv2 = Conv2d(256, 24, 1)
         self.Conv_1 = _conv(280, 256, 3)
         self.BatchNorm_2 = _bn(256)
         self.Conv_2 = _conv(256, 256, 3)
         self.BatchNorm_3 = _bn(256)
-        self.ConvTranspose_1 = nn.ConvTranspose2d(256, 256, 4, 2, 1)
+        self.ConvTranspose_1 = ConvTranspose2d(256, 256, 4, 2, 1)
         self.BatchNorm_4 = _bn(256)
-        self.Conv_3 = nn.Conv2d(256, n_classes, 1)        # aux head 2
+        self.Conv_3 = Conv2d(256, n_classes, 1)           # aux head 2
         self.BatchNorm_5 = _bn(n_classes)
         self.Conv_4 = _conv(280, 256, 3)
         self.BatchNorm_6 = _bn(256)
         self.Conv_5 = _conv(256, 256, 3)
         self.BatchNorm_7 = _bn(256)
-        self.Conv_6 = nn.Conv2d(256, n_classes, 1)
+        self.Conv_6 = Conv2d(256, n_classes, 1)
         self.BatchNorm_8 = _bn(n_classes)
-        self.ConvTranspose_2 = nn.ConvTranspose2d(n_classes, n_classes, 8,
-                                                  4, 2)
+        self.ConvTranspose_2 = ConvTranspose2d(n_classes, n_classes, 8, 4, 2)
         self.BatchNorm_9 = _bn(n_classes)
 
-    @staticmethod
-    def _skip(x, skip, gate):
+    def _skip(self, x, skip, gate: Optional[nn.Module]):
+        skip = skip.to(x.dtype)
+        if gate is None:
+            return torch.cat([x, skip], 1)
         g = F.relu(gate(x.mean((2, 3), keepdim=True)))
-        return torch.cat([x, g * skip.to(x.dtype)], 1)
+        return torch.cat([x, g * skip], 1)
 
-    def forward(self, x, skip1, skip2):
+    def forward(self, x, skip1, skip2, aux: bool = True) -> List[torch.Tensor]:
         x = F.relu(self.BatchNorm_0(self.ConvTranspose_0(x)))
-        x = self._skip(x, skip1, self.fuse_conv1)
+        heads = []
+        if aux:
+            heads.append(upsample(self.BatchNorm_1(self.Conv_0(x)), 8))
+        x = self._skip(x, skip1, self.fuse_conv1 if self.fusion else None)
         x = F.relu(self.BatchNorm_2(self.Conv_1(x)))
         x = F.relu(self.BatchNorm_3(self.Conv_2(x)))
         x = self.BatchNorm_4(self.ConvTranspose_1(x))
-        x = self._skip(x, skip2, self.fuse_conv2)
+        if aux:
+            heads.append(upsample(self.BatchNorm_5(self.Conv_3(x)), 4))
+        x = self._skip(x, skip2, self.fuse_conv2 if self.fusion else None)
         x = F.relu(self.BatchNorm_6(self.Conv_4(x)))
         x = F.relu(self.BatchNorm_7(self.Conv_5(x)))
         x = self.BatchNorm_8(self.Conv_6(x))
-        return self.BatchNorm_9(self.ConvTranspose_2(x)).float()
+        res = self.BatchNorm_9(self.ConvTranspose_2(x))
+        return [t.float() for t in [res] + heads]
 
 
 class SSMA(nn.Module):
@@ -248,44 +284,77 @@ class SSMA(nn.Module):
 
 
 class AdapNet(nn.Module):
-    """Stage 2: RGB and depth encoders fused by SSMA at the bottleneck and
-    both skips. NCHW in, NCHW f32 logits out."""
+    """Stage 1: one encoder, eASPP, the decoder with plain skips. Stage 2:
+    RGB (``mod1``) and depth (``mod2``) encoders fused by SSMA at the
+    bottleneck and both skips. NCHW in; the net computes in
+    ``compute_dtype`` (default: its parameters' dtype)."""
 
-    def __init__(self, n_classes: int, resn50_dropout: bool = True):
+    def __init__(self, n_classes: int, stage: int = 1,
+                 resn50_dropout: bool = True):
         super().__init__()
+        if stage not in (1, 2):
+            raise ValueError(f"AdapNet++ has stages 1 and 2, not {stage}")
+        self.stage = stage
+        self.compute_dtype: Optional[torch.dtype] = None
         self.encoder_mod1 = Encoder(resn50_dropout)
-        self.encoder_mod2 = Encoder(resn50_dropout)
-        self.eASPP_mod1 = EASPP()
-        self.eASPP_mod2 = EASPP()
-        self.ssma_s2 = SSMA(24, 6)
-        self.ssma_s1 = SSMA(24, 6)
-        self.ssma_res = SSMA(256, 16)
-        self.decoder = Decoder(n_classes)
+        if stage == 1:
+            self.eASPP = EASPP()
+        else:
+            self.encoder_mod2 = Encoder(resn50_dropout)
+            self.eASPP_mod1 = EASPP()
+            self.eASPP_mod2 = EASPP()
+            self.ssma_s2 = SSMA(24, 6)
+            self.ssma_s1 = SSMA(24, 6)
+            self.ssma_res = SSMA(256, 16)
+        self.decoder = Decoder(n_classes, fusion=stage == 2)
 
-    def forward(self, rgb, depth):
-        m1, s2_1, s1_1 = self.encoder_mod1(rgb)
-        m2, s2_2, s1_2 = self.encoder_mod2(depth)
+    def set_dropout_generator(self, generator: torch.Generator):
+        """The generator the layer3[2] dropout draws from in train mode."""
+        set_dropout_generator(self, generator)
+
+    def _run(self, mod1, mod2, aux: bool):
+        dt = self.compute_dtype or self.encoder_mod1.Conv_0.weight.dtype
+        m1, s2_1, s1_1 = self.encoder_mod1(mod1.to(dt))
+        if self.stage == 1:
+            return self.decoder(self.eASPP(m1), s1_1, s2_1, aux)
+        if mod2 is None:
+            raise ValueError("stage-2 AdapNet needs two modalities")
+        m2, s2_2, s1_2 = self.encoder_mod2(mod2.to(dt))
         skip2 = self.ssma_s2(s2_1, s2_2)
         skip1 = self.ssma_s1(s1_1, s1_2)
         x = self.ssma_res(self.eASPP_mod1(m1), self.eASPP_mod2(m2))
-        return self.decoder(x, skip1, skip2)
+        return self.decoder(x, skip1, skip2, aux)
+
+    def forward(self, mod1, mod2=None) -> List[torch.Tensor]:
+        """``[res, aux1, aux2]``: (B, C, H, W) f32 logits each."""
+        return self._run(mod1, mod2, aux=True)
+
+    def logits(self, mod1, mod2=None) -> torch.Tensor:
+        """``res`` alone (the aux heads not computed)."""
+        return self._run(mod1, mod2, aux=False)[0]
 
 
 def build_adapnet(config) -> AdapNet:
-    """Factory from the SEMANTIC_2D_MODEL config section (stage 2)."""
-    if int(config.get("stage", 1)) != 2:
-        raise ValueError("the port has AdapNet++ stage 2 only")
-    return AdapNet(n_classes=int(config.n_classes),
-                   resn50_dropout=bool(config.get("resn50_dropout", True)))
+    """Factory from the SEMANTIC_2D_MODEL config section; a bf16
+    ``compute_dtype`` is set on the (f32) module."""
+    net = AdapNet(n_classes=int(config.n_classes),
+                  stage=int(config.get("stage", 1)),
+                  resn50_dropout=bool(config.get("resn50_dropout", True)))
+    if config.get("compute_dtype") in ("bfloat16", "bf16"):
+        net.compute_dtype = torch.bfloat16
+    return net
 
 
 class SegmenterAdapter:
     """Pipeline-facing adapter: NHWC frames in, NHWC logits out. ``image``
     is (h, w, 3) in 0..255, ``depth`` (h, w); the image is scaled to [0, 1]
-    and the depth repeated to 3 channels (reference normalisation)."""
+    and the depth repeated to 3 channels (reference normalisation). A
+    stage-1 model sees the image where ``input_mode`` is "image", else the
+    depth."""
 
-    def __init__(self, model: AdapNet):
+    def __init__(self, model: AdapNet, input_mode: str = "tof_depth"):
         self.model = model
+        self.input_mode = input_mode
 
     def apply_fn(self, image, depth):
         return self.apply_fn_batched(image[None], depth[None])[0]
@@ -295,7 +364,9 @@ class SegmenterAdapter:
         """(B, h, w, 3) images, (B, h, w) depths -> (B, h, w, C) f32
         logits. Inference BatchNorm: each sample independent of the
         batch."""
-        dtype = self.model.encoder_mod1.Conv_0.weight.dtype
-        img = (images / 255.0).permute(0, 3, 1, 2).to(dtype)
-        dep = depths[:, None].expand(-1, 3, -1, -1).to(dtype)
-        return self.model(img, dep).permute(0, 2, 3, 1)
+        img = (images / 255.0).permute(0, 3, 1, 2)
+        dep = depths[:, None].expand(-1, 3, -1, -1)
+        if self.model.stage == 1:
+            mod1 = img if self.input_mode == "image" else dep
+            return self.model.logits(mod1).permute(0, 2, 3, 1)
+        return self.model.logits(img, dep).permute(0, 2, 3, 1)

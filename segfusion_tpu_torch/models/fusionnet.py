@@ -6,15 +6,14 @@ Submodules carry the Flax auto-names (``Conv_0``, ``BatchNorm_0``,
 the module by name. The public input is the JAX package's NHWC dict;
 the convolutions run NCHW inside.
 
-The net computes in ``compute_dtype`` (default: its parameters' dtype).
-Convolutions and the inference BatchNorm cast their parameters to it, so
-a float32 net with a bfloat16 ``compute_dtype`` (the trainer's f32 master
-weights) infers bit-identically to the same net cast to bfloat16, as
-Flax's ``dtype=bfloat16`` keeps float32 parameters. In train mode the
-layers do what Flax's do: BatchNorm normalises with float32 batch
-statistics and updates its running averages (epsilon 1e-5, momentum
-0.99, the biased variance), and dropout drops whole channels, drawing
-from the generator given to :meth:`FusionNetV3.set_dropout_generator`.
+The net computes in ``compute_dtype`` (default: its parameters' dtype),
+through the layers of ``models/layers.py``: convolutions and the
+inference BatchNorm cast their parameters to it, so a float32 net with a
+bfloat16 ``compute_dtype`` (the trainer's f32 master weights) infers
+bit-identically to the same net cast to bfloat16. In train mode BatchNorm
+normalises with float32 batch statistics and moves its running averages
+by Flax's momentum 0.99, and dropout drops whole channels, drawing from
+the generator given to :meth:`FusionNetV3.set_dropout_generator`.
 """
 
 from __future__ import annotations
@@ -25,78 +24,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import BatchNorm, Conv2d, Dropout, set_dropout_generator
+
 __all__ = ["BatchNorm", "Conv2d", "Dropout", "Block", "Pred",
            "VortexPooling", "FusionHead", "FusionNetV3", "build_fusion_net"]
-
-_BN_MOMENTUM = 0.99   # Flax's: new = 0.99 * running + 0.01 * batch
-
-
-class Conv2d(nn.Conv2d):
-    """Conv2d computing in its input's dtype (parameters cast to it)."""
-
-    def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype))
-
-
-class BatchNorm(nn.BatchNorm2d):
-    """Flax ``nn.BatchNorm(use_running_average=not train)`` over NCHW.
-
-    Inference: the running statistics, parameters cast to the input's
-    dtype. Train mode (``fusionnet_fast._bn_train`` of the JAX package
-    spells it out): float32 mean and biased variance ``mean(x^2) -
-    mean^2`` clamped at 0 over N, H and W; ``(x - mean) * (rsqrt(var +
-    eps) * scale) + bias`` in float32, returned in the input's dtype; the
-    running averages move by momentum 0.99, fed the same biased variance.
-    """
-
-    def __init__(self, ch: int):
-        super().__init__(ch, eps=1e-5, momentum=1.0 - _BN_MOMENTUM)
-
-    def forward(self, x):
-        if not self.training:
-            dt = x.dtype
-            return F.batch_norm(x, self.running_mean.to(dt),
-                                self.running_var.to(dt), self.weight.to(dt),
-                                self.bias.to(dt), False, 0.0, self.eps)
-        xf = x.float()
-        mean = xf.mean((0, 2, 3))
-        # maximum, not clamp: at a tie its gradient splits, as jnp's does
-        var = torch.maximum(xf.square().mean((0, 2, 3)) - mean.square(),
-                            torch.zeros((), device=x.device))
-        with torch.no_grad():
-            self.running_mean.copy_(_BN_MOMENTUM * self.running_mean
-                                    + (1.0 - _BN_MOMENTUM) * mean)
-            self.running_var.copy_(_BN_MOMENTUM * self.running_var
-                                   + (1.0 - _BN_MOMENTUM) * var)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (xf - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias.float()[:, None, None]
-        return y.to(x.dtype)
-
-
-class Dropout(nn.Module):
-    """Flax ``nn.Dropout(rate, broadcast_dims=(1, 2))``: in train mode one
-    keep draw per (sample, channel), kept values scaled by 1 / (1 -
-    rate). Draws from ``generator`` (never the global RNG); identity at
-    inference and at rate 0."""
-
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = float(rate)
-        self.generator: Optional[torch.Generator] = None
-
-    def forward(self, x):
-        if not self.training or self.rate <= 0.0:
-            return x
-        if self.generator is None:
-            raise RuntimeError("dropout in train mode needs a generator "
-                               "(FusionNetV3.set_dropout_generator)")
-        keep = 1.0 - self.rate
-        u = torch.rand(x.shape[:2] + (1, 1), generator=self.generator,
-                       device=x.device)
-        return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
-                                                             device=x.device))
 
 
 def _lrelu(x):
@@ -247,9 +178,7 @@ class FusionNetV3(nn.Module):
 
     def set_dropout_generator(self, generator: torch.Generator):
         """The generator every dropout layer draws from in train mode."""
-        for m in self.modules():
-            if isinstance(m, Dropout):
-                m.generator = generator
+        set_dropout_generator(self, generator)
 
     def forward(self, data: Dict[str, torch.Tensor]) -> torch.Tensor:
         dtype = self.compute_dtype or self.VortexPooling_0.Conv_0.weight.dtype

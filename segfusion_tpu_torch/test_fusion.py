@@ -16,15 +16,13 @@ from __future__ import annotations
 
 import argparse
 
-import torch
-
 from .config import get_data_config, with_defaults
 from .core.database import Database
 from .core.pipeline import Pipeline
 from .data import PrefetchLoader, get_data
 from .device import resolve_device
-from .models.adapnet import SegmenterAdapter
-from .utils.convert import adapnet_from_checkpoint, fusionnet_from_checkpoint
+from .utils.convert import (fusionnet_from_checkpoint,
+                            segmenter_from_checkpoint)
 from .utils.workspace import get_workspace
 
 __all__ = ["test_fusion"]
@@ -55,11 +53,9 @@ def test_fusion(config, device="cuda", fusion_net=None, segmenter=None):
         if not testing.semantic_2d_model_path:
             raise ValueError("semantic_strategy 'predict' needs "
                              "TESTING.semantic_2d_model_path")
-        model = adapnet_from_checkpoint(testing.semantic_2d_model_path,
-                                        config.SEMANTIC_2D_MODEL)
-        dtype = (torch.bfloat16 if config.SEMANTIC_2D_MODEL.get(
-            "compute_dtype") in ("bfloat16", "bf16") else torch.float32)
-        segmenter = SegmenterAdapter(model.to(device, dtype).eval())
+        segmenter = segmenter_from_checkpoint(
+            testing.semantic_2d_model_path, config.SEMANTIC_2D_MODEL,
+            config.DATA.input, device)
         workspace.log(f"loaded segmentation checkpoint "
                       f"{testing.semantic_2d_model_path}", "test")
     if fusion_net is None:

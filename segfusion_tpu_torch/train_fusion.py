@@ -33,12 +33,11 @@ from .core.pipeline import Pipeline
 from .data import PrefetchLoader, get_data
 from .device import resolve_device
 from .models import seeded_init
-from .models.adapnet import SegmenterAdapter
 from .models.fusionnet import build_fusion_net
 from .ops import rowvol
 from .utils.checkpoints import load_checkpoint
-from .utils.convert import (adapnet_from_checkpoint,
-                            fusionnet_from_checkpoint, load_flax, to_flax)
+from .utils.convert import (fusionnet_from_checkpoint, load_flax,
+                            segmenter_from_checkpoint, to_flax)
 from .utils.optim import get_optimizer
 from .utils.schedulers import get_schedule
 from .utils.workspace import get_workspace
@@ -61,11 +60,9 @@ def _segmenter(config, device):
     if not (config.DATA.semantics
             and config.DATA.semantic_strategy == "predict"):
         return None
-    model = adapnet_from_checkpoint(config.TESTING.semantic_2d_model_path,
-                                    config.SEMANTIC_2D_MODEL)
-    dtype = (torch.bfloat16 if config.SEMANTIC_2D_MODEL.get("compute_dtype")
-             in ("bfloat16", "bf16") else torch.float32)
-    return SegmenterAdapter(model.to(device, dtype).eval())
+    return segmenter_from_checkpoint(config.TESTING.semantic_2d_model_path,
+                                     config.SEMANTIC_2D_MODEL,
+                                     config.DATA.input, device)
 
 
 def train_fusion(config, device="cuda", comment: str = ""):

@@ -21,11 +21,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.adapnet import build_adapnet
+from ..models.adapnet import SegmenterAdapter, build_adapnet
 from ..models.fusionnet import build_fusion_net
 
 __all__ = ["load_flax", "fusionnet_from_flax", "adapnet_from_flax",
            "fusionnet_from_checkpoint", "adapnet_from_checkpoint",
+           "segmenter_from_checkpoint",
            "to_flax", "flax_tree", "from_flax_tree"]
 
 
@@ -128,6 +129,16 @@ def adapnet_from_checkpoint(path: str, cfg) -> nn.Module:
     from .checkpoints import load_checkpoint
     ck = load_checkpoint(path)
     return adapnet_from_flax(ck["params"], ck.get("batch_stats", {}), cfg)
+
+
+def segmenter_from_checkpoint(path: str, cfg, input_mode: str,
+                              device) -> SegmenterAdapter:
+    """The pipelines' segmenter: the AdapNet of a segmentation checkpoint
+    (either stage), cast to its compute dtype on ``device`` for
+    inference, stage 1 fed the ``input_mode`` modality (DATA.input)."""
+    model = adapnet_from_checkpoint(path, cfg)
+    dtype = model.compute_dtype or torch.float32
+    return SegmenterAdapter(model.to(device, dtype).eval(), input_mode)
 
 
 # -- the module -> Flax direction ---------------------------------------------

@@ -1,8 +1,8 @@
 """Evaluation metrics: 3D geometry, 3D semantics and the mesh F-score.
 
 The port's own copy of ``segfusion_tpu/utils/metrics.py``, trimmed to the
-three functions the Database calls (host numpy at evaluation boundaries;
-the 2D segmentation score comes with the training slice). The arithmetic
+three functions the Database calls (host numpy at evaluation boundaries)
+and the 2D segmentation score the segmentation CLIs keep. The arithmetic
 is the JAX package's line for line, so both give the same numbers.
 """
 
@@ -12,7 +12,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["evaluation", "semantic_evaluation", "fscore"]
+__all__ = ["evaluation", "semantic_evaluation", "fscore", "RunningScore",
+           "runningScore"]
 
 _EPS = 1.0e-10
 
@@ -86,6 +87,58 @@ def semantic_evaluation(est: np.ndarray, target: np.ndarray,
     present = np.where(est_present | gt_present)[0]
     cls_iou = {int(c): float(iou[c]) for c in present}
     return {"Mean Acc": mean_acc, "Mean IoU": mean_iou}, cls_iou
+
+
+class RunningScore:
+    """2D segmentation confusion-matrix metrics: Acc, Mean Acc, FreqW Acc
+    and Mean IoU, and the per-class IoU. With ``ignore_index`` 0 the
+    class-0 row and column leave the scores, and class 0's IoU reads 0."""
+
+    def __init__(self, n_classes: int, ignore_index: int = -100):
+        self.n_classes = n_classes
+        self.ignore_index = ignore_index
+        self.confusion_matrix = np.zeros((n_classes, n_classes), np.float64)
+
+    def _hist(self, label_true, label_pred):
+        n = self.n_classes
+        mask = (label_true >= 0) & (label_true < n)
+        return np.bincount(
+            n * label_true[mask].astype(np.int64)
+            + label_pred[mask].astype(np.int64),
+            minlength=n * n).reshape(n, n)
+
+    def update(self, label_trues, label_preds):
+        """Add a batch of (label, prediction) images."""
+        for lt, lp in zip(label_trues, label_preds):
+            self.confusion_matrix += self._hist(np.asarray(lt).ravel(),
+                                                np.asarray(lp).ravel())
+
+    def get_scores(self):
+        """(metrics dict, class -> IoU); classes absent from both the
+        labels and the predictions score NaN and leave the means."""
+        hist = self.confusion_matrix
+        if self.ignore_index == 0:
+            hist = hist[1:, 1:]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            acc = np.diag(hist).sum() / hist.sum()
+            acc_cls = np.nanmean(np.diag(hist) / hist.sum(axis=1))
+            iou = np.diag(hist) / (hist.sum(axis=1) + hist.sum(axis=0)
+                                   - np.diag(hist))
+            mean_iou = np.nanmean(iou)
+            freq = hist.sum(axis=1) / hist.sum()
+            fwavacc = (freq[freq > 0] * iou[freq > 0]).sum()
+        if self.ignore_index == 0:
+            iou = np.insert(iou, 0, 0.0)
+        cls_iou = dict(zip(range(self.n_classes), iou))
+        return ({"Acc": float(acc), "Mean Acc": float(acc_cls),
+                 "FreqW Acc": float(fwavacc), "Mean IoU": float(mean_iou)},
+                cls_iou)
+
+    def reset(self):
+        self.confusion_matrix[:] = 0
+
+
+runningScore = RunningScore   # the reference's name
 
 
 def fscore(est_points: np.ndarray, gt_points: np.ndarray,

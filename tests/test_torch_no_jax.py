@@ -38,6 +38,10 @@ _PROBE = textwrap.dedent("""
     assert "segfusion_tpu_torch.probes.random_access" in names
     assert "segfusion_tpu_torch.train_fusion" in names
     assert "segfusion_tpu_torch.utils.checkpoints" in names
+    for new in ("models.layers", "train_segmentation", "test_segmentation",
+                "seg_quality_demo", "quality_demo", "utils.torch_import",
+                "utils.png"):
+        assert "segfusion_tpu_torch." + new in names, new
     leaked = sorted(m for m in sys.modules if refused(m))
     assert not leaked, leaked
     print(len(names))
@@ -50,8 +54,8 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     # chip_smoke + the package's modules (ops, kernels, models, core,
-    # utils, probes, ...)
-    assert int(proc.stdout.split()[-1]) >= 41
+    # utils, probes, the CLIs, ...)
+    assert int(proc.stdout.split()[-1]) >= 48
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
