@@ -72,11 +72,45 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    compared;
    then ``segfusion_tpu_torch.train_fusion.train_fusion`` on the
    configuration of configs/fusion/synthetic_small.yaml (1 epoch, 8
-   frames), its best.ckpt fed back through ``test_fusion``.
+   frames), its best.ckpt fed back through ``test_fusion``;
+11. segmentation training at ResNet-50 widths (configs/segmentation/
+   replica_{depth,rgb,multi}.yaml's model and optimizer, 256x256, batch
+   8, bf16): AdapNet++ stage 1 on depth, stage 1 on the image, stage 2
+   with the transplant of both and random masking; images/s, ms a step,
+   peak memory, losses; 11b ``test_segmentation`` on the stage-2
+   checkpoint (metrics and strips); 11c ``test_fusion`` with the stage-1
+   depth model predicting the labels (K1/K3/K4/K5);
+12. one stage-1 train step on the card and on the CPU against float64;
+13. ``seg_quality_demo`` (trained unseen-scene mIoU at least twice the
+   random init's);
+14. the per-frame step, the flat scalar path, FusionNet v1/v2 and the
+   classic fusion, at the headline's scale (448^3 at 1 cm, 256x256,
+   v3 gf 6 with the semantic head, AdapNet++ stage 2, bf16 nets), each
+   sub-phase timed:
+   a. per-frame ``Pipeline.fuse`` of 8 frames through the Database
+      (K2, K3 and K4 each 8 times), frames/s;
+   b. ``integration: scalar`` ``fuse_sequence`` in both gather
+      precisions (2 chunks of 8), frames/s, the packing pass's ms; the
+      same 16 frames through the row path against the scalar path, with
+      f32 nets (tests/test_rowvol.py's bound) and bf16 nets (a stated
+      bound: ``scalar_path``);
+   c. phase 6's small stream through the flat path and per-frame steps,
+      card against CPU;
+   d. ``fuse_training`` at phase 9's width (8 frames, rmsprop a frame),
+      training frames/s and peak memory; ``train_fusion`` with
+      ``use_sequence: false`` and ``accumulation_steps: 2`` on
+      synthetic_small, its best.ckpt through ``test_fusion`` with
+      ``sequence_chunk: 1`` on synthetic_tpu_demo_joint's configuration
+      (K1 to K5);
+   e. FusionNet v1, v2 and a stack_heads v3 at 256x256: f32 forward card
+      against CPU, a train-mode step; v2 through ``fuse_sequence_rows``;
+   f. the classic fusion (``TSDFVolume`` API, ``tsdf_from_depth_views``
+      at 256^3, ``distance_transform``, ``tvl1_refine`` at 128^3), card
+      against CPU.
 
 Launch counts are reset just before each main-path run (3c's probe
-mains, 4, 4b, 5, 8, 9 and the trainer of 10) and read just after; the
-kernel checks' launches are not counted.
+mains, 4, 4b, 5, 8, 9, the trainer of 10, 11c and 14's runs) and read
+just after; the kernel checks' launches are not counted.
 
 Then one JSON line of per-kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result where
@@ -100,6 +134,7 @@ import torch
 
 from segfusion_tpu_torch import test_fusion as entry
 from segfusion_tpu_torch.config import Config, default_config
+from segfusion_tpu_torch.core import tsdf_volume as ctv
 from segfusion_tpu_torch.core.database import Database
 from segfusion_tpu_torch.core.pipeline import Pipeline
 from segfusion_tpu_torch.core.volume import Voxelgrid
@@ -110,7 +145,10 @@ from segfusion_tpu_torch.headline import (HEADLINE_SHAPE, build_pipeline,
 from segfusion_tpu_torch.models import seeded_init
 from segfusion_tpu_torch.models.adapnet import SegmenterAdapter
 from segfusion_tpu_torch.models.fusionnet import build_fusion_net
-from segfusion_tpu_torch.ops import rowvol
+from segfusion_tpu_torch.ops import distance_transform as cdt
+from segfusion_tpu_torch.ops import geometry, rowvol
+from segfusion_tpu_torch.ops import tvl1 as ctvl1
+from segfusion_tpu_torch.ops.tsdf_fusion import tsdf_from_depth_views
 from segfusion_tpu_torch.ops.integrate import pack_semantic_key
 from segfusion_tpu_torch.ops.kernels import _build
 from segfusion_tpu_torch.ops.kernels import median3d as k5
@@ -1836,6 +1874,480 @@ def seg_quality(dev, root: str):
                            "the random init's")
 
 
+# -- phase 14: the per-frame step, the flat path, FusionNet v1/v2, classic --
+
+def host_batches(frames, scene: str, input_key: str):
+    """A (T, ...) device frame dict as the loader's host batches."""
+    host = {k: v.cpu().numpy() for k, v in frames.items()}
+    names = {"depth": input_key}
+    return [{names.get(k, k): v[i:i + 1] for k, v in host.items()
+             if k != "depth_input"} | {"frame_id": [f"{scene}/{i}"]}
+            for i in range(len(host["depth"]))]
+
+
+def per_frame_fuse(dev, pipe, frames, db):
+    """Phase 14a: ``Pipeline.fuse`` a frame at a time into the Database;
+    every frame enters slot form, runs one row step with a full shadow
+    build (K2) and exits (K3, K4). Returns the launch counts."""
+    batches = host_batches(frames, db.scenes[0], pipe.config.DATA.input)
+    pipe.fuse(batches[0], db)                                  # warm-up
+    db.reset()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for b in batches:
+        pipe.fuse(b, db)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    n = len(batches)
+    log(f"14a per-frame fuse (448^3, 256x256, v3 gf 6 + AdapNet++ stage 2, "
+        f"bf16 nets, bf16 geo, through the Database): {n} frames in "
+        f"{dt:.3f} s = {n / dt:.2f} frames/s; launches {counts}")
+    check_volume(db.volumes[db.scenes[0]], "per-frame fuse volume")
+    for k in ("build_shadow", "reconcile_slot", "reconcile_key"):
+        if counts[k] != n:
+            raise RuntimeError(f"per-frame fuse: {k} launched {counts[k]} "
+                               f"times for {n} frames")
+    return counts
+
+
+def rows_against_scalar(dev, base, chunks, net_dtype: str):
+    """The 16 frames through the scalar path (f16packed gathers) and the
+    row path (f32 geo, frame_block 1, semantics every frame), the nets in
+    ``net_dtype``: (max |dw|, max |dnum|, voxels past atol 1e-4 + rtol
+    1e-4, observed voxels, keys differing, the row run's launch
+    counts)."""
+    outs = []
+    for integration in ("scalar", "rows"):
+        cfg = copy.deepcopy(base.config)
+        cfg.FUSION_MODEL.compute_dtype = net_dtype
+        cfg.SETTINGS.update(integration=integration, frame_block=1,
+                            sem_integrate_every=1, geo_dtype="float32",
+                            gather_precision="f16packed")
+        pipe = Pipeline(cfg, segmenter=base.segmenter, device=dev,
+                        fusion_net=copy.deepcopy(base.fusion_net))
+        if integration == "scalar":
+            vol = headline_volume(dev)
+            for c in chunks:
+                vol = pipe.fuse_sequence(vol, c)
+            outs.append(vol)
+        else:
+            vol, counts, _, _ = run_stream(pipe, headline_volume(dev), chunks)
+            outs.append(vol)
+    v, ref = outs
+    dw = (v.weights - ref.weights).abs()
+    dn = (v.num - ref.num).abs()
+    over = ((dw > 1e-4 + 1e-4 * ref.weights.abs())
+            | (dn > 1e-4 + 1e-4 * ref.num.abs()))
+    return (float(dw.max()), float(dn.max()), int(over.sum()),
+            int((ref.weights > 0).sum()), int((v.semkey != ref.semkey).sum()),
+            counts)
+
+
+def scalar_path(dev, base, frames):
+    """Phase 14b: SETTINGS.integration scalar at 448^3, two chunks of 8
+    through ``fuse_sequence`` with each gather precision, timed; the
+    packing pass timed alone. Then the same 16 frames through the row path
+    (f32 geo, frame_block 1, semantics every frame) against the scalar
+    path with f16packed gathers (the same bf16 words feed both nets), as
+    tests/test_rowvol.py:201-202 compares them: with f32 nets (TF32 off)
+    num and w within atol 1e-4 + rtol 1e-4 and the keys exact. With the
+    headline's bf16 nets the bound does not hold: the two paths sum the
+    geo state in another order, so a packed bf16 word now and then rounds
+    one ulp apart, and a bf16 net turns that into an output one bf16 ulp
+    apart (~4e-4 at 0.1), which the next frames integrate. That run is
+    held to an explicit bound instead: keys exact, at most 1% of the
+    observed voxels past the f32 bound and |dnum| below 0.02 (measured on
+    an H100 in three runs: 20,835 to 21,668 of 7,659,821 observed voxels,
+    0.27-0.28%, |dnum| 1.08e-3 to 1.30e-3; with f32 nets none past the
+    bound, |dnum| 1.59e-5).
+    Returns the row runs' launch counts."""
+    chunks = [{k: v[i:i + 8] for k, v in frames.items()} for i in (0, 8)]
+    vol = None
+    for gather in ("f16packed", "f32"):
+        cfg = copy.deepcopy(base.config)
+        cfg.SETTINGS.update(integration="scalar", gather_precision=gather)
+        pipe = Pipeline(cfg, segmenter=base.segmenter,
+                        fusion_net=base.fusion_net, device=dev)
+        del vol
+        vol = pipe.fuse_sequence(headline_volume(dev), chunks[0])   # warm-up
+        vol = headline_volume(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in chunks:
+            vol = pipe.fuse_sequence(vol, c)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"14b scalar path, gather_precision {gather} (448^3, 256x256, "
+            f"frame_block 4 and sem every 8 unused, bf16 nets): 16 frames "
+            f"in {dt:.3f} s = {16 / dt:.2f} frames/s")
+        check_volume(vol, f"scalar {gather} volume")
+    pack_ms = cuda_ms(lambda: geometry.pack16_numw(vol.num, vol.weights), 10)
+    log(f"  the packing pass over 448^3 (pack16_numw, once a flat frame "
+        f"with f16packed): {pack_ms:.3f} ms; bound "
+        f"{bytes_ms(3 * 4 * vol.num.numel()):.3f} ms (bytes)")
+    del vol
+    counts = {}
+    for net_dtype in ("float32", "bfloat16"):
+        dw, dn, over, observed, keys_off, c = rows_against_scalar(
+            dev, base, chunks, net_dtype)
+        log(f"  scalar (f16packed) against the row path, {net_dtype} nets: "
+            f"max |dw| {dw:.3g}, max |dnum| {dn:.3g}, voxels past atol 1e-4 "
+            f"+ rtol 1e-4: {over} of {observed} observed, keys differing "
+            f"{keys_off}; row launches {c}")
+        require(c, ["build_shadow_dirty", "reconcile_slot", "reconcile_key"],
+                "scalar comparison's row path")
+        counts = {k: counts.get(k, 0) + n for k, n in c.items()}
+        ok = keys_off == 0 and observed > 0 and (
+            over == 0 if net_dtype == "float32"
+            else over <= 1e-2 * observed and dn < 0.02)
+        if not ok:
+            raise RuntimeError(f"the scalar and row paths disagree at 448^3 "
+                               f"({net_dtype} nets)")
+    return counts
+
+
+def small_flat_reference(dev):
+    """Phase 14c: phase 6's stream (64^3, 32x32, 6 frames, f32 nets, TF32
+    off) through the flat ``fuse_sequence`` and through per-frame
+    ``fuse`` steps (the row path), each on the card and on the CPU;
+    phase 6's tolerances (tests/test_torch_pipeline.py)."""
+    cfg = headline_config(32, 32)
+    cfg.FUSION_MODEL.update(growth_factor=2, compute_dtype="float32")
+    cfg.SEMANTIC_2D_MODEL.compute_dtype = "float32"
+    cfg.SETTINGS.update(frame_block=1, sem_integrate_every=1,
+                        geo_dtype="float32")
+    frames = render_frames(6, 32, 32, "cpu")
+    for what in ("scalar fuse_sequence", "per-frame fuse"):
+        c = copy.deepcopy(cfg)
+        if what.startswith("scalar"):
+            c.SETTINGS.integration = "scalar"
+        cpu_pipe = build_pipeline(c, "cpu", seed=3)
+        seg = SegmenterAdapter(copy.deepcopy(cpu_pipe.segmenter.model).to(dev))
+        gpu_pipe = Pipeline(c, segmenter=seg, device=dev,
+                            fusion_net=copy.deepcopy(cpu_pipe.fusion_net))
+        outs = []
+        for pipe, d in ((cpu_pipe, "cpu"), (gpu_pipe, dev)):
+            vol = headline_volume(d, (64, 64, 64))
+            fr = {k: v.to(d) for k, v in frames.items()}
+            if what.startswith("scalar"):
+                vol = pipe.fuse_sequence(vol, fr)
+            else:
+                for i in range(6):
+                    vol = pipe.step_fuse_impl(
+                        vol, {k: x[i:i + 1] for k, x in fr.items()})
+            outs.append(vol)
+        ref, got = outs
+        rw, gw = ref.weights, got.weights.cpu()
+        obs = rw > 0.05
+        t_err = float((got.tsdf.cpu()[obs] - ref.tsdf[obs]).abs().max())
+        lab = ref.semkey > 0
+        share = float((got.semantics.cpu()[lab] == ref.semantics[lab])
+                      .float().mean())
+        log(f"14c {what} (card vs CPU, 64^3, 6 frames): max |dw| "
+            f"{float((gw - rw).abs().max()):.3g}, max |dtsdf| {t_err:.3g} on "
+            f"{int(obs.sum())} voxels, semantic id agreement {share:.4f}")
+        if not (torch.allclose(gw, rw, atol=1e-3, rtol=1e-3)
+                and t_err <= 1e-3 and int(obs.sum()) > 1000
+                and share >= 0.99):
+            raise RuntimeError(f"{what}: card and CPU disagree")
+
+
+def flat_training(dev, db):
+    """Phase 14d: ``fuse_training`` at phase 9's width (448^3, 256x256, v3
+    gf 6 + semantic head, bf16 on f32 master weights, gt labels), 8
+    frames through the Database, one rmsprop step (phase 9's optimizer)
+    after each; a warm-up frame first."""
+    cfg = train_config()
+    net = seeded_init(build_fusion_net(cfg.FUSION_MODEL),
+                      torch.Generator().manual_seed(0))
+    pipe = Pipeline(cfg, fusion_net=net, device=dev, train=True)
+    opt_cfg = cfg.TRAINING.optimizer
+    optimizer = get_optimizer(opt_cfg, pipe.fusion_net, get_schedule(
+        float(opt_cfg.lr), cfg.TRAINING.scheduler), clipping=True)
+    batches = host_batches(with_labels(render_frames(9, 256, 256, dev)),
+                           db.scenes[0], cfg.DATA.input)
+    db.reset()
+    params0 = [p.detach().clone() for p in pipe.fusion_net.parameters()]
+    stats0 = running_stats(pipe.fusion_net)
+
+    def step(b):
+        optimizer.zero_grad()
+        loss = pipe.fuse_training(b, db)
+        optimizer.step()
+        return float(loss)
+    step(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    losses = [step(b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    moved_p = max(float((p.detach() - q).abs().max())
+                  for p, q in zip(pipe.fusion_net.parameters(), params0))
+    moved_s = float((running_stats(pipe.fusion_net) - stats0).abs().max())
+    vol = db.volumes[db.scenes[0]]
+    log(f"14d fuse_training (448^3, 256x256, v3 gf 6 + semantic head, bf16 "
+        f"on f32 master weights, rmsprop a frame): 8 frames in {dt:.3f} s "
+        f"= {8 / dt:.2f} training frames/s; peak device memory "
+        f"{peak:.2f} GiB; losses {losses}; largest parameter move "
+        f"{moved_p:.3g}, running statistics {moved_s:.3g}")
+    if (not all(np.isfinite(losses)) or moved_p == 0 or moved_s == 0
+            or not bool(torch.isfinite(vol.num).all())
+            or int((vol.weights > 0).sum()) == 0):
+        raise RuntimeError("fuse_training: non-finite loss or volume, or "
+                           "the weights did not move")
+
+
+def flat_train_entry_point(dev):
+    """Phase 14d, continued: ``train_fusion`` on synthetic_small with
+    ``use_sequence: false`` and ``accumulation_steps: 2`` (1 epoch, 8
+    frames; its validation ``fuse_many`` runs K1/K3/K4), then its
+    best.ckpt through ``test_fusion`` with ``sequence_chunk: 1`` on the
+    configuration of synthetic_tpu_demo_joint.yaml (16 frames, 84x88x84,
+    semantics: K2/K3/K4 a frame, K5 once) with synthetic_small's net.
+    Returns the launch counts."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_flat_") as path:
+        cfg = synthetic_small_config(path)
+        cfg.TRAINING.optimization.update(use_sequence=False,
+                                         accumulation_steps=2)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        net, ws = train_fusion(cfg, dev)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        tcfg = demo_joint_config(os.path.join(path, "test"))
+        tcfg.FUSION_MODEL = copy.deepcopy(cfg.FUSION_MODEL)
+        tcfg.TESTING.update(sequence_chunk=1, fusion_model_path=os.path.join(
+            ws.model_path, "best.ckpt"))
+        t0 = time.perf_counter()
+        results = entry.test_fusion(tcfg, dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        with open(os.path.join(ws.log_path, "train.log")) as f:
+            log_lines = [line.strip() for line in f if ": loss " in line]
+    log(f"14d train_fusion, use_sequence false, accumulation_steps 2 "
+        f"(synthetic_small, 8 frames of 48x48): {t_train:.3f} s; "
+        f"{log_lines}; test_fusion from its best.ckpt, sequence_chunk 1 "
+        f"(demo_joint, 16 frames): {time.perf_counter() - t0:.3f} s "
+        f"{json.dumps(results)}; launches {counts}")
+    bad = [k for k, v in results.items() if not np.isfinite(v)]
+    if bad or len(results) != 9:
+        raise RuntimeError(f"test_fusion (per frame): missing or non-finite "
+                           f"metrics {bad or results}")
+    require(counts, ["build_shadow_dirty", "build_shadow", "reconcile_slot",
+                     "reconcile_key", "median_filter3d"],
+            "flat train_fusion and per-frame test_fusion")
+    if counts["build_shadow"] != 16:
+        raise RuntimeError(f"per-frame test_fusion: {counts['build_shadow']}"
+                           " full shadow builds for 16 frames")
+    return counts
+
+
+def demo_joint_config(path: str):
+    """configs/fusion/synthetic_tpu_demo_joint.yaml built in Python, cut
+    to 16 frames; ply saves only (phase 8's configuration)."""
+    cfg = default_config()
+    cfg.SETTINGS.update(save_mode="ply", num_workers=0, experiment_path=path)
+    cfg.FUSION_MODEL.update(name="v3", n_points=9, n_tail_points=7,
+                            growth_factor=6, use_semantics=True,
+                            compute_dtype="bfloat16")
+    cfg.SEMANTIC_2D_MODEL.update(stage=1, n_classes=8)
+    cfg.TESTING.update(outlier_filter_val=1)
+    cfg.DATA.update(dataset="Synthetic", semantics="class8",
+                    semantic_strategy="gt", semantic_grid=True,
+                    input="tof_depth", resx=256, resy=256, n_frames=16,
+                    n_scenes=1, voxel_resolution=0.05, noise_sigma=0.01,
+                    init_value=0.24, pad=2)
+    return cfg
+
+
+def fusion_nets(dev, hw: int = 256):
+    """Phase 14e: FusionNet v1, v2 (growth factor 6) and a stack_heads v3
+    with the semantic input at 256x256, 9 points: the f32 forward (TF32
+    off) on the card against the CPU (atol 1e-4), one train-mode step of
+    each on the card (SGD, dropout from the net's generator); then v2 in
+    bf16 through ``fuse_sequence_rows`` for one chunk of 8 at 448^3.
+    Returns that chunk's launch counts."""
+    g = torch.Generator().manual_seed(11)
+    data = {"tsdf_values": torch.randn(1, hw, hw, 9, generator=g) * 0.05,
+            "tsdf_weights": torch.rand(1, hw, hw, 9, generator=g) * 3,
+            "tsdf_frame": torch.rand(1, hw, hw, 1, generator=g) * 3,
+            "semantic_frame": torch.rand(1, hw, hw, 1, generator=g)}
+    for name, extra in (("v1", {}), ("v2", {}), ("v3", {"stack_heads": True})):
+        cfg = Config({"name": name, "n_points": 9, "use_semantics": True,
+                      "output_scale": 1.0, "growth_factor": 6, **extra})
+        net = seeded_init(build_fusion_net(cfg), torch.Generator()
+                          .manual_seed(5)).eval()
+        with torch.no_grad():
+            want = net(data)
+            card = copy.deepcopy(net).to(dev)
+            got = card({k: v.to(dev) for k, v in data.items()}).cpu()
+        err = float((got - want).abs().max())
+        card.train().set_dropout_generator(
+            torch.Generator(device=dev).manual_seed(1))
+        opt = get_optimizer(Config({"name": "sgd", "momentum": 0.9}), card,
+                            get_schedule(1e-3, None))
+        before = [p.detach().clone() for p in card.parameters()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = card({k: v.to(dev) for k, v in data.items()})
+        loss = out.square().mean()
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        moved_p = max(float((p.detach() - q).abs().max())
+                      for p, q in zip(card.parameters(), before))
+        log(f"14e FusionNet {name}{' stack_heads' if extra else ''} ({hw}x{hw}, "
+            f"9 points, semantic input, {sum(p.numel() for p in net.parameters())}"
+            f" parameters): f32 forward card vs CPU max |d| {err:.3g}; one "
+            f"train-mode SGD step {1e3 * dt:.1f} ms, loss "
+            f"{float(loss.detach()):.5g}, largest parameter move "
+            f"{moved_p:.3g}")
+        if not (err <= 1e-4 and torch.isfinite(loss) and moved_p > 0):
+            raise RuntimeError(f"FusionNet {name}: card and CPU disagree, or "
+                               "its train step failed")
+    cfg = headline_config()
+    cfg.FUSION_MODEL.name = "v2"
+    pipe = build_pipeline(cfg, dev, seed=7)
+    frames = render_frames(8, 256, 256, dev)
+    out, counts, t_fuse, _ = run_stream(pipe, headline_volume(dev), [frames])
+    log(f"14e v2 through fuse_sequence_rows (448^3, 256x256, headline "
+        f"settings): 8 frames in {t_fuse:.3f} s = {8 / t_fuse:.2f} frames/s;"
+        f" launches {counts}")
+    check_volume(out, "v2 volume")
+    require(counts, ["build_shadow_dirty", "reconcile_slot",
+                     "reconcile_key"], "v2 fuse_sequence_rows")
+    return counts
+
+
+def classic_fusion(dev, n: int = 256, hw: int = 256,
+                   wall_res: float = 0.01):
+    """Phase 14f: the classic fusion on the card against the CPU. The
+    TSDFVolume / MulticlassTSDFVolume API on tests/test_tsdf_volume_api.py's
+    wall (two fuses, sanity_fuse, label votes, depth_rendering);
+    ``tsdf_from_depth_views`` at 256^3 over 8 views of the synthetic room
+    (256x256); ``distance_transform`` and ``tvl1_refine`` at 128^3.
+    Elementwise: values within 1e-5 on all but 0.1% of the voxels (a
+    projection within an ulp of a pixel edge may round to the next
+    pixel; tests/test_torch_classic.py), distances within 1e-4 (integer
+    sums), TV-L1 within 1e-5."""
+    def compare(what, got, want, atol=1e-5, share=1e-3):
+        got = torch.as_tensor(np.asarray(got)).double()
+        want = torch.as_tensor(np.asarray(want)).double()
+        d = (got - want).abs()
+        far = float((d > atol).double().mean())
+        log(f"    {what}: max |d| {float(d.max()):.3g}, share past "
+            f"{atol:g}: {far:.3g}")
+        if far > share:
+            raise RuntimeError(f"classic fusion: {what} card vs CPU")
+
+    bbox = np.array([[-1.0, 1.0], [-1.0, 1.0], [0.0, 3.0]])
+    h = w = hw
+    f = 0.6 * w
+    k = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    depth = np.full((h, w), 2.0, np.float32)
+    proj = (k @ np.eye(4)[:3]).astype(np.float32)
+    labels = np.full((h, w), 3, np.uint8)
+    labels[:, : w // 2] = 5
+    res = {}
+    for d in ("cpu", dev):
+        t0 = time.perf_counter()
+        mc = ctv.MulticlassTSDFVolume(bbox, wall_res, n_classes=8,
+                                      max_distance=0.05, device=d)
+        mc.fuse(proj, depth, labels)
+        mc.fuse(proj, depth * np.float32(1.01), labels[::-1])
+        mc.sanity_fuse(proj, depth)
+        res[str(d)] = (mc.volume, mc.weights, mc.free_space, mc.get_mask(),
+                       mc.label_probs, mc.labels,
+                       mc.depth_rendering(np.eye(4, dtype=np.float32), k,
+                                          (h, w)), time.perf_counter() - t0)
+    log(f"14f MulticlassTSDFVolume at {mc.shape} (wall, {hw}x{hw}): card "
+        f"{res[str(dev)][-1]:.3f} s, CPU {res['cpu'][-1]:.3f} s")
+    for name, a, b in zip(("tsdf", "weights", "free space", "mask",
+                           "label probabilities", "labels", "rendered depth"),
+                          res[str(dev)], res["cpu"]):
+        compare(name, a, b)
+
+    frames = render_frames(8, hw, hw, "cpu")
+    kk = frames["intrinsics"][0].double()
+    projs = torch.stack([(kk @ torch.linalg.inv(e.double())[:3]).float()
+                         for e in frames["extrinsics"]])
+    shape, origin, vres = (n,) * 3, [-2.24] * 3, 4.48 / n
+    views = {}
+    for d in ("cpu", dev):
+        tsdf_from_depth_views(frames["depth"], projs, shape, origin, vres,
+                              0.05, device=d)           # warm-up
+        if d != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        views[str(d)] = [t.cpu() for t in tsdf_from_depth_views(
+            frames["depth"], projs, shape, origin, vres, 0.05, device=d)]
+        views[str(d) + "_s"] = time.perf_counter() - t0
+    log(f"14f tsdf_from_depth_views ({n}^3, 8 views of {hw}x{hw}): card "
+        f"{views[str(dev) + '_s']:.3f} s, CPU {views['cpu_s']:.3f} s; "
+        f"observed voxels {int((views['cpu'][1] > 0).sum())}")
+    compare("tsdf", views[str(dev)][0], views["cpu"][0])
+    compare("weights", views[str(dev)][1], views["cpu"][1])
+
+    occ = (torch.rand((n // 2,) * 3,
+                      generator=torch.Generator().manual_seed(2))
+           > 0.999).float()
+    tsdf = torch.clamp(views["cpu"][0][::2, ::2, ::2].contiguous(), -1, 1)
+    wts = views["cpu"][1][::2, ::2, ::2].contiguous()
+    for name, fn, atol in (
+            ("distance_transform",
+             lambda d: cdt.distance_transform(
+                 torch.where(occ > 0, 0.0, cdt.INF).to(d)), 1e-4),
+            ("occupancy_to_sdf",
+             lambda d: cdt.occupancy_to_sdf(occ.to(d), 0.035), 1e-5),
+            ("tvl1_refine",
+             lambda d: ctvl1.tvl1_refine(tsdf.to(d), wts.to(d)), 1e-5)):
+        want = fn("cpu")
+        fn(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(dev)
+        torch.cuda.synchronize()
+        log(f"14f {name} at {n // 2}^3: card "
+            f"{time.perf_counter() - t0:.3f} s")
+        compare(name, got.cpu(), want, atol=atol, share=0.0)
+
+
+def phase14(dev):
+    """Phase 14 (a-f); returns the main-path launch counts."""
+    t_all = time.perf_counter()
+    cfg = headline_config()
+    base = build_pipeline(cfg, dev)
+    frames = render_frames(16, 256, 256, dev)
+    t0 = time.perf_counter()
+    db = Database(HeadlineRoom(), cfg.DATA, device=dev)
+    counts = per_frame_fuse(dev, base, {k: v[:8] for k, v in frames.items()},
+                            db)
+    log(f"  14a: {time.perf_counter() - t0:.1f} s")
+    for name, run in (("14b", lambda: scalar_path(dev, base, frames)),
+                      ("14c", lambda: small_flat_reference(dev)),
+                      ("14d", lambda: flat_training(dev, db)),
+                      ("14d train_fusion", lambda: flat_train_entry_point(
+                          dev)),
+                      ("14e", lambda: fusion_nets(dev)),
+                      ("14f", lambda: classic_fusion(dev))):
+        t0 = time.perf_counter()
+        more = run()
+        torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+        for k, n in (more or {}).items():
+            counts[k] += n
+    del db, base
+    torch.cuda.empty_cache()
+    log(f"phase 14: {time.perf_counter() - t_all:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1888,6 +2400,8 @@ def main() -> int:
         segmentation_reference(dev)
         seg_quality(dev, root)
     log(f"phases 11-13 (segmentation): {time.perf_counter() - t0:.1f} s")
+    for k, n in phase14(dev).items():
+        launches[k] += n
 
     replaces = {"build_shadow_dirty": f"{PALLAS}:359",
                 "build_shadow": f"{PALLAS}:254",

@@ -1,12 +1,22 @@
-"""Pipeline: online joint inference over the slot-row scene state.
+"""Pipeline: online joint inference and training over the scene state.
 
-Port of the row inference path of ``segfusion_tpu/core/pipeline.py``:
-``fuse_sequence_rows`` / ``fuse_many`` and what they call. Per frame (or
-block of ``frame_block`` frames): semantic labels (AdapNet++ pre-pass or
-ground truth) -> unproject + ray samples -> corner rows -> gather shadow
-(dirty tiles only, when the carry is on) -> ``extract_rows`` -> FusionNet
-v3 -> ``integrate_rows`` -> dirty mask for the next step. The stream exits
+Port of ``segfusion_tpu/core/pipeline.py``. The row path
+(``fuse_sequence_rows`` / ``fuse_many``), per frame (or block of
+``frame_block`` frames): semantic labels (AdapNet++ pre-pass or ground
+truth) -> unproject + ray samples -> corner rows -> gather shadow (dirty
+tiles only, when the carry is on) -> ``extract_rows`` -> FusionNet ->
+``integrate_rows`` -> dirty mask for the next step. The stream exits
 through the reconcile kernels into a canonical ``SceneVolume``.
+
+The per-frame API (``fuse`` / ``fuse_training``) steps one frame of the
+canonical volume: on the row path ``step_fuse_impl`` enters slot form,
+runs one row step with a full shadow build and exits (K2, K3 and K4 once
+a frame); ``step_train_impl`` and, under ``SETTINGS.integration:
+scalar``, every step take the flat scalar path: extraction of the
+canonical (num, w) volume through linear corner indices
+(``ops/geometry.py``; ``SETTINGS.gather_precision``: the packed bf16
+words or f32), FusionNet, and the scatter-add / key scatter-max into it
+(``ops/integrate.py``), in place.
 
 The JAX ``lax.scan`` over frames is a Python loop; its ``lax.cond`` on the
 semantic-decimation phase is an ``if`` on a host int. Kernel dispatch
@@ -26,6 +36,7 @@ FUSION_MODEL.compute_dtype.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -38,6 +49,7 @@ from ..models.fusionnet import build_fusion_net
 from ..models.layers import training_convolutions
 from ..ops import geometry
 from ..ops import rowvol
+from ..ops import integrate as integ
 from ..ops.integrate import pack_semantic_key
 from ..utils.losses import fusion_loss
 from .volume import SceneVolume
@@ -63,6 +75,22 @@ def _bf16_setting(value) -> bool:
     return value in ("bfloat16", "bf16")
 
 
+def _prepare_fusion_input(depth, values: geometry.ExtractedValues, sem_ids,
+                          n_points: int, n_classes: int,
+                          use_semantics: bool) -> Dict[str, torch.Tensor]:
+    """One (h, w) frame's NHWC net inputs from a flat extraction."""
+    h, w = depth.shape
+    inputs = {
+        "tsdf_values": values.fusion_values.reshape(1, h, w, n_points),
+        "tsdf_weights": values.fusion_weights.reshape(1, h, w, n_points),
+        "tsdf_frame": depth.reshape(1, h, w, 1),
+    }
+    if use_semantics:
+        sem = (1.0 + sem_ids.float()) / n_classes
+        inputs["semantic_frame"] = sem.reshape(1, h, w, 1)
+    return inputs
+
+
 def _fused_for_loss(fusion_values, fusion_weights, tsdf_est,
                     init_value: float):
     """The moving-average fusion the loss compares with the target:
@@ -75,12 +103,14 @@ def _fused_for_loss(fusion_values, fusion_weights, tsdf_est,
 
 
 class Pipeline:
-    """Fusion net (+ optional 2D segmenter) and the row inference path.
+    """Fusion net (+ optional 2D segmenter), the row path and the flat
+    scalar path.
 
     ``segmenter``: a ``models.adapnet.SegmenterAdapter`` (its model already
     on ``device``), required when DATA.semantic_strategy is "predict": it
     labels a whole chunk up front, ``_SEM_BATCH`` frames per forward.
-    ``fusion_net``: a loaded FusionNetV3; when None one is built with
+    ``fusion_net``: a loaded FusionNet (v1, v2 or v3); when None one is
+    built with
     random weights from ``generator`` (default seed 0). The net is moved
     to ``device`` ("cuda" unless the caller names the CPU) and computes
     in FUSION_MODEL.compute_dtype; with ``train`` its parameters stay
@@ -105,15 +135,15 @@ class Pipeline:
                 and segmenter is None):
             raise ValueError("semantic_strategy 'predict' needs a segmenter")
         s = config.SETTINGS
-        # the flat scalar path (and SETTINGS.gather_precision, which only
-        # it reads) is not ported: refuse it rather than run the row path
-        if s.get("integration", "rows") == "scalar":
-            raise NotImplementedError(
-                "SETTINGS.integration 'scalar' (the flat scalar path) is not "
-                "ported (ROADMAP Queue 1 #5); use the row path ('rows')")
+        # the flat scalar path: SETTINGS.integration scalar; its gathers
+        # read packed bf16 words unless SETTINGS.gather_precision is f32
+        self.row_path = s.get("integration", "rows") != "scalar"
+        self.packed16_gather = s.get("gather_precision",
+                                     "f16packed") != "f32"
         # dirty-shadow carry: rebuild only the tiles the previous step's
         # integration touched (bit-identical; the mask is conservative)
-        self.dirty_shadow = s.get("dirty_shadow", "on") != "off"
+        self.dirty_shadow = self.row_path and s.get("dirty_shadow",
+                                                    "on") != "off"
         loss = config.get("TRAINING", {}).get("loss") or {}
         self.loss_weights = {k: float(loss.get(k, d)) for k, d in
                              (("w_l1", 1.0), ("w_l2", 10.0), ("w_cos", 0.1))}
@@ -160,7 +190,8 @@ class Pipeline:
         """Attach the chunk's predicted semantics (``sem_ids_pre`` /
         ``sem_scores_pre``) to a (T, ...) frame dict: the prediction
         depends only on the frame, so it runs batched before the loop."""
-        if not (self.semantics and self.semantic_strategy == "predict"):
+        if ("sem_ids_pre" in frames or not (
+                self.semantics and self.semantic_strategy == "predict")):
             return frames
         ids, scores = self._predict_semantics_batched(
             frames["image"], frames["depth_input"])
@@ -347,6 +378,152 @@ class Pipeline:
                                              None, ray_mask, t)
         return loss.detach(), rv._replace(geo=geo, key=key), new_carry
 
+    # -- the per-frame step and the flat scalar path ---------------------------
+
+    def _extract(self, depth, extrinsics, intrinsics, volume: SceneVolume):
+        """Flat extraction of one (h, w) frame from the accumulator state
+        (packed bf16 words or f32, SETTINGS.gather_precision)."""
+        return geometry.extract_numw(
+            depth, extrinsics, intrinsics, volume.num, volume.weights,
+            volume.origin, volume.resolution, init_value=self.init_value,
+            n_points=self.n_points, packed16=self.packed16_gather)
+
+    def _extract_gt(self, depth, extrinsics, intrinsics, gt_tsdf,
+                    volume: SceneVolume):
+        """The gt extraction: the f32 gt value volume beside the estimate's
+        weights."""
+        return geometry.extract(depth, extrinsics, intrinsics, gt_tsdf,
+                                volume.weights, volume.origin,
+                                volume.resolution, n_points=self.n_points)
+
+    def _volume_update_args(self, values: geometry.ExtractedValues,
+                            tsdf_est, filtered_depth):
+        """The first n_tail_points samples of each ray, clipped, and the
+        rays with depth: (values, corner indices -- (lin, valid) from the
+        packed extraction, else (n, t, 8, 3) -- corner weights, ray
+        mask)."""
+        t = self.n_tail_points
+        upd_values = torch.clamp(tsdf_est[0, :, :t], -self.init_value,
+                                 self.init_value)
+        upd_weights = values.weights[:, :t]
+        ray_mask = filtered_depth.reshape(-1) != 0.0
+        if values.lin is not None:
+            return (upd_values, (values.lin[:, :t], values.valid[:, :t]),
+                    upd_weights, ray_mask)
+        return upd_values, values.indices[:, :t], upd_weights, ray_mask
+
+    @staticmethod
+    def _integrate_geo(volume, upd_values, upd_idx, upd_weights, ray_mask):
+        if isinstance(upd_idx, tuple):
+            integ.integrate_numw_lin(volume.num, volume.weights, upd_values,
+                                     *upd_idx, upd_weights, ray_mask)
+        else:
+            integ.integrate_numw(volume.num, volume.weights, upd_values,
+                                 upd_idx, upd_weights, ray_mask)
+
+    @staticmethod
+    def _integrate_sem(volume, sem_ids, scores, upd_idx, ray_mask):
+        if isinstance(upd_idx, tuple):
+            integ.integrate_semkey_lin(volume.semkey, sem_ids, scores,
+                                       *upd_idx, ray_mask)
+        else:
+            integ.integrate_semkey(volume.semkey, sem_ids, scores, upd_idx,
+                                   ray_mask)
+
+    def _frame_semantics(self, frame):
+        """(sem_ids, scores), each (h*w,), of a 1-frame dict: the pre-pass
+        values (run here where not attached) or the gt labels."""
+        ids, scores = self._block_semantics(self._sem_prepass_frames(frame))
+        return ids[0], scores[0]
+
+    def _flat_frontend(self, volume: SceneVolume, frame, sem_ids):
+        """(depth, masked depth, flat extraction, the net's inputs) of a
+        1-frame dict."""
+        depth = frame["depth"][0]
+        filtered = torch.where(frame["mask"][0], depth, 0.0)
+        values = self._extract(depth, frame["extrinsics"][0],
+                               frame["intrinsics"][0], volume)
+        inputs = _prepare_fusion_input(depth, values, sem_ids, self.n_points,
+                                       self.n_classes, self.use_semantics)
+        return depth, filtered, values, inputs
+
+    @torch.no_grad()
+    def step_fuse_impl(self, volume: SceneVolume, frame) -> SceneVolume:
+        """One inference frame (``frame`` leaves lead with 1) of the
+        canonical volume. Row path: enter slot form, one row step with a
+        full shadow build (no carry), exit -- a new volume. Flat path:
+        extract, FusionNet, then the scatter-add (and with semantics the
+        key scatter-max) into ``volume`` in place, which is returned."""
+        if self.row_path:
+            layout, rv = self._rows_from_volume(volume)
+            rv, _ = self.step_fuse_rows_block_impl(
+                layout, rv, self._sem_prepass_frames(frame))
+            return self._exit_rows(layout, rv)
+        sem_ids, scores = (self._frame_semantics(frame) if self.semantics
+                           else (None, None))
+        depth, filtered, values, inputs = self._flat_frontend(volume, frame,
+                                                              sem_ids)
+        est = self.fusion_net(inputs).reshape(1, depth.numel(), -1)
+        upd_values, upd_idx, upd_weights, ray_mask = \
+            self._volume_update_args(values, est[..., :self.n_points],
+                                     filtered)
+        self._integrate_geo(volume, upd_values, upd_idx, upd_weights,
+                            ray_mask)
+        if self.semantics:
+            self._integrate_sem(volume, sem_ids, scores, upd_idx, ray_mask)
+        return volume
+
+    def step_train_impl(self, volume: SceneVolume, gt_tsdf: torch.Tensor,
+                        frame) -> Tuple[torch.Tensor, SceneVolume]:
+        """One training frame on the flat path (``frame`` leaves lead with
+        1; the caller puts the net in train mode): the extraction and the
+        f32 gt extraction without autograd, FusionNet, the fusion loss and
+        its backward (the frame's gradients add into ``.grad``), then the
+        detached, clipped estimate integrates into ``volume`` in place (no
+        semantics: the reference trains with ``test=False``). Returns
+        ``(loss, volume)``."""
+        p = self.n_points
+        with torch.no_grad():
+            sem_ids = (self._frame_semantics(frame)[0]
+                       if self.semantics and self.use_semantics else None)
+            depth, filtered, values, inputs = self._flat_frontend(
+                volume, frame, sem_ids)
+            values_gt = self._extract_gt(depth, frame["extrinsics"][0],
+                                         frame["intrinsics"][0], gt_tsdf,
+                                         volume)
+        est = self.fusion_net(inputs).reshape(1, depth.numel(), -1)[..., :p]
+        ray_mask = filtered.reshape(-1) != 0.0
+        loss = fusion_loss(_fused_for_loss(values.fusion_values,
+                                           values.fusion_weights, est,
+                                           self.init_value),
+                           values_gt.fusion_values[None, :, :p],
+                           ray_mask[None], **self.loss_weights)
+        loss.backward()
+        with torch.no_grad():
+            self._integrate_geo(volume, *self._volume_update_args(
+                values, est.detach(), filtered))
+        return loss.detach(), volume
+
+    @contextlib.contextmanager
+    def _training(self):
+        """The net in train mode (BatchNorm statistics move, dropout
+        draws) under ``training_convolutions``; back in eval mode after."""
+        self.fusion_net.train()
+        try:
+            with training_convolutions(self.fusion_net.compute_dtype,
+                                       self.device):
+                yield
+        finally:
+            self.fusion_net.eval()
+
+    @staticmethod
+    def _reset_volume(volume: SceneVolume) -> SceneVolume:
+        """Zero the canonical state in place (a training reset)."""
+        volume.num.zero_()
+        volume.weights.zero_()
+        volume.semkey.zero_()
+        return volume
+
     # -- sequences ------------------------------------------------------------
 
     @torch.no_grad()
@@ -380,8 +557,15 @@ class Pipeline:
         return stream
 
     def fuse_sequence(self, volume: SceneVolume, frames) -> SceneVolume:
-        """Fuse a (T, ...) frame chunk into ``volume``: enter the slot
-        form, stream, exit."""
+        """Fuse a (T, ...) frame chunk into ``volume``: on the row path
+        enter the slot form, stream, exit (a new volume); on the flat path
+        one ``step_fuse_impl`` a frame, in place."""
+        if not self.row_path:
+            frames = self._sem_prepass_frames(frames)
+            for i in range(frames["depth"].shape[0]):
+                volume = self.step_fuse_impl(
+                    volume, {k: x[i:i + 1] for k, x in frames.items()})
+            return volume
         layout, rv = self._rows_from_volume(volume)
         stream = self.fuse_sequence_rows(layout, self._new_stream(layout, rv),
                                          frames)
@@ -405,32 +589,42 @@ class Pipeline:
                 frames = self._sem_prepass_frames(frames)
         T = frames["depth"].shape[0]
         loss_sum = torch.zeros((), device=self.device)
-        self.fusion_net.train()
-        try:
-            with training_convolutions(self.fusion_net.compute_dtype,
-                                       self.device):
-                for i in range(T):
-                    if bool(reset_flags[i]):
-                        stream = self._reset_stream(stream)
-                    frame = {key: x[i:i + 1] for key, x in frames.items()}
-                    carry = (None if stream.shadow is None
-                             else (stream.shadow, stream.dirty))
-                    loss, rv, carry = self.step_train_rows_impl(
-                        layout, stream.rv, gt_shadow, frame,
-                        shadow_carry=carry)
-                    stream = (RowStream(rv, None, None) if carry is None
-                              else RowStream(rv, carry[0], carry[1]))
-                    loss_sum = loss_sum + loss
-        finally:
-            self.fusion_net.eval()
+        with self._training():
+            for i in range(T):
+                if bool(reset_flags[i]):
+                    stream = self._reset_stream(stream)
+                frame = {key: x[i:i + 1] for key, x in frames.items()}
+                carry = (None if stream.shadow is None
+                         else (stream.shadow, stream.dirty))
+                loss, rv, carry = self.step_train_rows_impl(
+                    layout, stream.rv, gt_shadow, frame, shadow_carry=carry)
+                stream = (RowStream(rv, None, None) if carry is None
+                          else RowStream(rv, carry[0], carry[1]))
+                loss_sum = loss_sum + loss
         return loss_sum, stream
 
     def train_sequence(self, volume: SceneVolume, gt_tsdf: torch.Tensor,
                        frames, reset_flags) -> Tuple[torch.Tensor,
                                                      SceneVolume]:
         """:meth:`train_sequence_rows` from and to a canonical volume:
-        enter the slot form, pack the gt shadow, train, exit. Returns
-        ``(loss_sum, volume)``."""
+        enter the slot form, pack the gt shadow, train, exit. On the flat
+        path one ``step_train_impl`` a frame into ``volume``, in place, a
+        set ``reset_flags`` entry zeroing it first. Returns ``(loss_sum,
+        volume)``."""
+        if not self.row_path:
+            if self.use_semantics:
+                with torch.no_grad():
+                    frames = self._sem_prepass_frames(frames)
+            loss_sum = torch.zeros((), device=self.device)
+            with self._training():
+                for i in range(frames["depth"].shape[0]):
+                    if bool(reset_flags[i]):
+                        volume = self._reset_volume(volume)
+                    loss, volume = self.step_train_impl(
+                        volume, gt_tsdf,
+                        {k: x[i:i + 1] for k, x in frames.items()})
+                    loss_sum = loss_sum + loss
+            return loss_sum, volume
         layout, rv = self._rows_from_volume(volume)
         gt_shadow = self._gt_shadow(layout, gt_tsdf)
         loss_sum, stream = self.train_sequence_rows(
@@ -466,6 +660,33 @@ class Pipeline:
         return {k: torch.as_tensor(np.stack([f[k] for f in frames])).to(
             self.device) for k in frames[0]}
 
+    def fuse(self, batch, database):
+        """One host batch (one frame) into ``database`` through
+        :meth:`step_fuse_impl` (the reference's per-frame API: on the row
+        path each call pays the enter and exit conversions; streams go
+        through :meth:`fuse_many`)."""
+        scene_id = self._scene_of(batch)
+        frame = self._stack_host_frames([self._frame_from_batch(
+            batch, self.config.DATA.input)])
+        database.update(scene_id, self.step_fuse_impl(
+            database.volumes[scene_id], frame))
+
+    def fuse_training(self, batch, database) -> torch.Tensor:
+        """One training frame on the flat path (:meth:`step_train_impl`)
+        against ``database``'s gt, the net in train mode: its gradients
+        add into ``.grad`` (the caller zeroes them and steps the
+        optimizer), its BatchNorm statistics move, and the scene's volume
+        integrates the estimate. Returns the loss."""
+        scene_id = self._scene_of(batch)
+        frame = self._stack_host_frames([self._frame_from_batch(
+            batch, self.config.DATA.input)])
+        with self._training():
+            loss, volume = self.step_train_impl(
+                database.volumes[scene_id], database.scenes_gt[scene_id],
+                frame)
+        database.update(scene_id, volume)
+        return loss
+
     def fuse_many(self, batches, database, chunk: int = 16,
                   max_live_scenes: Optional[int] = None):
         """Stream host batches through chunked ``fuse_sequence_rows``
@@ -474,7 +695,9 @@ class Pipeline:
         frames. A scene's slot state is carried across its chunks and
         written back to ``database`` once, when it is evicted (at most
         ``max_live_scenes`` carried at a time, default
-        SETTINGS.max_live_row_scenes, else 1) or at the end."""
+        SETTINGS.max_live_row_scenes, else 1) or at the end. On the flat
+        path each chunk goes through ``fuse_sequence`` into the database's
+        volume."""
         if max_live_scenes is None:
             max_live_scenes = int(self.config.SETTINGS.get(
                 "max_live_row_scenes", 1))
@@ -494,6 +717,10 @@ class Pipeline:
                 pad["mask"] = np.zeros_like(frames[-1]["mask"])
                 frames = frames + [pad] * (chunk - len(frames))
             stacked = self._stack_host_frames(frames)
+            if not self.row_path:
+                database.update(scene_id, self.fuse_sequence(
+                    database.volumes[scene_id], stacked))
+                return
             if scene_id not in rowstate:
                 while len(rowstate) >= max(1, max_live_scenes):
                     evict(next(iter(rowstate)))

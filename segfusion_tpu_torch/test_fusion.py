@@ -3,7 +3,9 @@
     python -m segfusion_tpu_torch.test_fusion --config configs/fusion/<name>.yaml [--device cpu]
 
 Counterpart of the JAX package's ``test_fusion.py``: stream every test
-frame through ``Pipeline.fuse_many``, outlier-filter the volumes,
+frame through ``Pipeline.fuse_many`` in chunks of TESTING.sequence_chunk
+(or, where it is 1 or less, one ``Pipeline.fuse`` a frame), outlier-filter
+the volumes,
 median-filter the label volumes, log the geometry, mesh F-score and
 semantic metrics, and save hdf5 volumes and ply meshes into a timestamped
 workspace under SETTINGS.experiment_path. Runs on the card (``--device
@@ -15,6 +17,8 @@ sees no CUDA device raises.
 from __future__ import annotations
 
 import argparse
+
+import numpy as np
 
 from .config import get_data_config, with_defaults
 from .core.database import Database
@@ -72,12 +76,18 @@ def test_fusion(config, device="cuda", fusion_net=None, segmenter=None):
                         device=device)
 
     chunk = int(testing.sequence_chunk or 1)
-    if chunk <= 1:
-        raise NotImplementedError(
-            "per-frame fusion (TESTING.sequence_chunk <= 1) is not ported "
-            "(ROADMAP Queue 1 #5); use sequence_chunk > 1")
-    pipeline.fuse_many(loader, database, chunk=chunk)
-    workspace.log(f"fused {len(dataset)} frames (chunks of {chunk})", "test")
+    if chunk > 1:
+        pipeline.fuse_many(loader, database, chunk=chunk)
+        workspace.log(f"fused {len(dataset)} frames (chunks of {chunk})",
+                      "test")
+    else:
+        n = 0
+        for batch in loader:
+            if not np.all(np.isfinite(np.asarray(batch["extrinsics"]))):
+                continue
+            pipeline.fuse(batch, database)
+            n += 1
+        workspace.log(f"fused {n} frames", "test")
 
     database.filter(value=float(testing.outlier_filter_val))
     if config.DATA.semantics:

@@ -6,9 +6,14 @@ Counterpart of the JAX package's ``train_fusion.py`` (the reference's
 paper loop): the training frames stream through chunks of
 ``accumulation_steps`` frames per scene, each chunk one
 ``Pipeline.train_sequence_rows`` call over the scene's carried slot state
-and its cached gt shadow (a short last chunk is padded with all-masked
-frames), then one optimizer update (global-norm clipping, the scheduled
-rate). Trajectory resets (hybrid loading) and random resets zero a scene
+and its cached gt shadow (under ``SETTINGS.integration: scalar`` one flat
+``train_sequence`` call into the Database's volume; a short last chunk is
+padded with all-masked frames), then one optimizer update (global-norm
+clipping, the scheduled rate). With ``TRAINING.optimization.use_sequence:
+false`` every frame is one ``Pipeline.fuse_training`` step and one
+optimizer step, wrapped in ``MultiSteps`` (the mean of k frames'
+gradients every k-th frame) where ``accumulation_steps`` k > 1.
+Trajectory resets (hybrid loading) and random resets zero a scene
 before the frame. Every ``eval_freq`` frames and at the end of an epoch
 the carried states are reconciled into the training Database and
 evaluated, the validation split is fused through ``fuse_many``,
@@ -38,7 +43,7 @@ from .ops import rowvol
 from .utils.checkpoints import load_checkpoint
 from .utils.convert import (fusionnet_from_checkpoint, load_flax,
                             segmenter_from_checkpoint, to_flax)
-from .utils.optim import get_optimizer
+from .utils.optim import MultiSteps, get_optimizer
 from .utils.schedulers import get_schedule
 from .utils.workspace import get_workspace
 
@@ -73,10 +78,7 @@ def train_fusion(config, device="cuda", comment: str = ""):
     device = resolve_device(device)
     training = config.TRAINING
     opt_cfg = training.optimization
-    if not opt_cfg.get("use_sequence", True):
-        raise NotImplementedError(
-            "TRAINING.optimization.use_sequence false (the flat scalar "
-            "training path) is not ported (ROADMAP Queue 1 #5)")
+    use_sequence = bool(opt_cfg.get("use_sequence", True))
     seed = int(config.SETTINGS.seed or 0)
     draws = np.random.RandomState(seed)       # random resets
 
@@ -108,6 +110,8 @@ def train_fusion(config, device="cuda", comment: str = ""):
         get_schedule(float(training.optimizer.lr), training.scheduler),
         clipping=bool(opt_cfg.clipping))
     accum = int(opt_cfg.accumulation_steps or 1)
+    if accum > 1 and not use_sequence:
+        optimizer = MultiSteps(optimizer, accum)
 
     start_epoch, best_iou = 0, 0.0
     if training.resume:
@@ -168,12 +172,18 @@ def train_fusion(config, device="cuda", comment: str = ""):
                 pad = dict(frames[-1], mask=np.zeros_like(frames[-1]["mask"]))
                 resets += [False] * (accum - len(frames))
                 frames += [pad] * (accum - len(frames))
-            layout, stream = train_rowstate(chunk_scene)
+            stacked = pipeline._stack_host_frames(frames)
             optimizer.zero_grad()
-            loss_sum, stream = pipeline.train_sequence_rows(
-                layout, stream, gt_shadows[chunk_scene],
-                pipeline._stack_host_frames(frames), resets)
-            rowstate[chunk_scene] = (layout, stream)
+            if pipeline.row_path:
+                layout, stream = train_rowstate(chunk_scene)
+                loss_sum, stream = pipeline.train_sequence_rows(
+                    layout, stream, gt_shadows[chunk_scene], stacked, resets)
+                rowstate[chunk_scene] = (layout, stream)
+            else:
+                loss_sum, volume = pipeline.train_sequence(
+                    train_database.volumes[chunk_scene],
+                    train_database.scenes_gt[chunk_scene], stacked, resets)
+                train_database.update(chunk_scene, volume)
             optimizer.step()
             train_loss += float(loss_sum)
             chunk_frames, chunk_resets = [], []
@@ -183,14 +193,22 @@ def train_fusion(config, device="cuda", comment: str = ""):
                 continue
             frame_id = batch["frame_id"][0]
             scene_id = frame_id.split("/", 1)[0]
-            if chunk_scene is not None and scene_id != chunk_scene:
-                flush_chunk()
-            chunk_scene = scene_id
-            chunk_frames.append(pipeline._frame_from_batch(
-                batch, config.DATA.input))
-            chunk_resets.append(reset_flag_for(frame_id, i))
-            if len(chunk_frames) == accum:
-                flush_chunk()
+            if use_sequence:
+                if chunk_scene is not None and scene_id != chunk_scene:
+                    flush_chunk()
+                chunk_scene = scene_id
+                chunk_frames.append(pipeline._frame_from_batch(
+                    batch, config.DATA.input))
+                chunk_resets.append(reset_flag_for(frame_id, i))
+                if len(chunk_frames) == accum:
+                    flush_chunk()
+            else:
+                if reset_flag_for(frame_id, i):
+                    train_database.reset(scene_id)
+                optimizer.zero_grad()
+                loss = pipeline.fuse_training(batch, train_database)
+                optimizer.step()
+                train_loss += float(loss)
 
             if (i + 1) % log_freq == 0:
                 workspace.add_scalar("Train/loss", train_loss / log_freq,

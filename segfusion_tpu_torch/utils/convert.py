@@ -11,6 +11,11 @@ parameter and buffer of the module set, or loading raises. The inverse
 (:func:`to_flax`, :func:`flax_tree`, :func:`from_flax_tree`) undoes each
 of these, so a module's parameters and any per-parameter tensors (grads,
 optimizer moments) carry across both ways.
+
+A FusionNet v3 with ``stack_heads`` has the JAX package's ``DualHead_0``
+tree, every leaf led by a head axis of 2: entry 0 loads into the TSDF
+head, entry 1 into the semantic head, and the module -> Flax direction
+writes the two heads back as one stacked tree.
 """
 
 from __future__ import annotations
@@ -56,10 +61,45 @@ def _layer_tensors(layer: nn.Module, p, s):
     return out
 
 
+_HEADS = ("head_tsdf", "head_sem")
+
+
+def _map_leaves(fn, tree):
+    return {k: _map_leaves(fn, v) if isinstance(v, Mapping) else fn(v)
+            for k, v in tree.items()}
+
+
+def _unstack_heads(module: nn.Module, tree: Mapping) -> Mapping:
+    """A stacked ``DualHead_0`` tree split onto the two heads."""
+    if not (getattr(module, "stack_heads", False) and "DualHead_0" in tree):
+        return tree
+    out = {k: v for k, v in tree.items() if k != "DualHead_0"}
+    for i, head in enumerate(_HEADS):
+        out[head] = _map_leaves(lambda x, i=i: np.asarray(x)[i],
+                                tree["DualHead_0"])
+    return out
+
+
+def _stack_heads(module: nn.Module, tree: dict) -> dict:
+    """The inverse of :func:`_unstack_heads`."""
+    if not getattr(module, "stack_heads", False) or _HEADS[0] not in tree:
+        return tree
+
+    def stack(a, b):
+        return {k: stack(v, b[k]) if isinstance(v, Mapping)
+                else np.stack([v, b[k]]) for k, v in a.items()}
+
+    out = {k: v for k, v in tree.items() if k not in _HEADS}
+    out["DualHead_0"] = stack(tree[_HEADS[0]], tree[_HEADS[1]])
+    return out
+
+
 def load_flax(module: nn.Module, params, batch_stats) -> nn.Module:
     """Copy a Flax ``(params, batch_stats)`` pair (numpy-convertible
     leaves) into ``module`` by name; returns the module."""
     assigned, consumed = set(), set()
+    params = _unstack_heads(module, params)
+    batch_stats = _unstack_heads(module, batch_stats)
 
     def walk(mod: nn.Module, p, s, path):
         for name in p:
@@ -102,7 +142,7 @@ def load_flax(module: nn.Module, params, batch_stats) -> nn.Module:
 
 
 def fusionnet_from_flax(params, batch_stats, cfg) -> nn.Module:
-    """FUSION_MODEL config + Flax FusionNet trees -> loaded FusionNetV3."""
+    """FUSION_MODEL config + Flax FusionNet trees -> the loaded net."""
     return load_flax(build_fusion_net(cfg), params, batch_stats)
 
 
@@ -113,7 +153,7 @@ def adapnet_from_flax(params, batch_stats, cfg) -> nn.Module:
 
 def fusionnet_from_checkpoint(path: str, cfg) -> nn.Module:
     """FUSION_MODEL config + a fusion checkpoint (either package's) ->
-    loaded FusionNetV3: its ``params`` with a ``_fusion_network`` prefix
+    the loaded FusionNet: its ``params`` with a ``_fusion_network`` prefix
     stripped (the reference's pipeline checkpoints carry one) and its
     ``batch_stats``, the module's initial statistics where it has none
     (as the JAX package's ``test_fusion`` loads it)."""
@@ -201,7 +241,7 @@ def flax_tree(module: nn.Module, tensors: Mapping[str, torch.Tensor],
         for k in path[:-1]:
             d = d.setdefault(k, {})
         d[path[-1]] = _to_flax_layout(layer, path[-1], _host(tensors[name]))
-    return tree
+    return _stack_heads(module, tree)
 
 
 def from_flax_tree(module: nn.Module, tree: Mapping,
@@ -209,6 +249,7 @@ def from_flax_tree(module: nn.Module, tree: Mapping,
     """The inverse of :func:`flax_tree`: state name -> numpy value in the
     module's layout (shape-checked against the module)."""
     state = module.state_dict()
+    tree = _unstack_heads(module, tree)
     out = {}
     for name, (col, path, layer) in _flax_slots(module).items():
         if col != collection:

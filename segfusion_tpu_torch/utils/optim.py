@@ -22,6 +22,12 @@ tensors:
 ``flax.serialization.to_state_dict`` gives the optax state (chain
 elements ``"0"``, ``"1"``, ... with optax's field names and per-parameter
 trees in Flax layout), so checkpoints carry it across both packages.
+
+:class:`MultiSteps` is ``optax.MultiSteps(tx, every_k_schedule=k)`` over
+an :class:`Optimizer` (the clipping and the rule chained first, then
+wrapped), as the JAX trainer accumulates per-frame steps: it keeps the
+running mean of k mini-step gradients and applies the wrapped update to
+that mean at every k-th step.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ import torch
 
 from .convert import flax_tree, from_flax_tree
 
-__all__ = ["Optimizer", "get_optimizer", "clip_by_global_norm_"]
+__all__ = ["Optimizer", "MultiSteps", "get_optimizer",
+           "clip_by_global_norm_"]
 
 
 class RMSprop(torch.optim.Optimizer):
@@ -250,6 +257,61 @@ class Optimizer:
         if self.name in ("adam", "adamax", "adadelta"):
             for _, p in self.named:   # torch's own step counter
                 self.opt.state[p]["step"] = torch.tensor(float(count))
+
+
+class MultiSteps:
+    """optax ``MultiSteps(inner, every_k_schedule=k)`` with the gradient
+    mean: each :meth:`step` folds the ``.grad`` of the inner optimizer's
+    parameters into the running mean ``acc + (g - acc) / (n + 1)`` of
+    this cycle's n earlier mini-steps; the k-th step of a cycle hands
+    that mean to the inner optimizer (clipping, weight decay, the rule,
+    its count) and restarts the cycle. The other steps change neither the
+    parameters nor the inner optimizer."""
+
+    def __init__(self, inner: Optimizer, every_k: int):
+        self.inner = inner
+        self.k = int(every_k)
+        self.mini_step = 0
+        self.gradient_step = 0
+        self.acc = {n: torch.zeros_like(p) for n, p in inner.named}
+
+    def zero_grad(self):
+        self.inner.zero_grad()
+
+    @torch.no_grad()
+    def step(self):
+        n = self.mini_step
+        for name, p in self.inner.named:
+            if p.grad is not None:
+                acc = self.acc[name]
+                acc.copy_(acc + (p.grad - acc) / (n + 1))
+        if n < self.k - 1:
+            self.mini_step += 1
+            return
+        for name, p in self.inner.named:
+            p.grad = self.acc[name].clone()
+        self.inner.step()
+        for acc in self.acc.values():
+            acc.zero_()
+        self.mini_step = 0
+        self.gradient_step += 1
+
+    def state_dict_flax(self) -> dict:
+        """``optax.MultiStepsState`` as ``flax.serialization`` lays it out."""
+        return {"mini_step": np.asarray(self.mini_step, np.int32),
+                "gradient_step": np.asarray(self.gradient_step, np.int32),
+                "inner_opt_state": self.inner.state_dict_flax(),
+                "acc_grads": flax_tree(self.inner.module, self.acc),
+                "skip_state": {}}
+
+    def load_state_dict_flax(self, state: dict):
+        self.mini_step = int(np.asarray(state["mini_step"]))
+        self.gradient_step = int(np.asarray(state["gradient_step"]))
+        self.inner.load_state_dict_flax(state["inner_opt_state"])
+        values = from_flax_tree(self.inner.module, state["acc_grads"])
+        for n, p in self.inner.named:
+            self.acc[n].copy_(torch.as_tensor(np.array(values[n]),
+                                              dtype=p.dtype))
 
 
 def _hparams(opt_cfg) -> Tuple[str, Dict[str, Any]]:

@@ -40,7 +40,8 @@ _PROBE = textwrap.dedent("""
     assert "segfusion_tpu_torch.utils.checkpoints" in names
     for new in ("models.layers", "train_segmentation", "test_segmentation",
                 "seg_quality_demo", "quality_demo", "utils.torch_import",
-                "utils.png"):
+                "utils.png", "ops.tsdf_fusion", "core.tsdf_volume",
+                "ops.distance_transform", "ops.tvl1"):
         assert "segfusion_tpu_torch." + new in names, new
     leaked = sorted(m for m in sys.modules if refused(m))
     assert not leaked, leaked
@@ -55,7 +56,7 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     # chip_smoke + the package's modules (ops, kernels, models, core,
     # utils, probes, the CLIs, ...)
-    assert int(proc.stdout.split()[-1]) >= 48
+    assert int(proc.stdout.split()[-1]) >= 58
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -246,21 +246,38 @@ def test_synthetic_frames_match_jax():
         assert (p["semantic_gt"] == j["semantic_gt"]).mean() >= 0.99
 
 
-def test_port_refuses_scalar_integration():
-    """SETTINGS.integration 'scalar' sends the JAX Pipeline down its flat
-    scalar path (row_path false; only that path reads gather_precision),
-    which the port does not have: the port's Pipeline refuses the setting
-    instead of silently running the row path."""
+def test_scalar_integration_matches_jax():
+    """SETTINGS.integration 'scalar' sends both Pipelines down the flat
+    scalar path (row_path false; gather_precision f32 turns the packed
+    gathers off): two interleaved scenes and a padded tail chunk through
+    ``fuse_many`` (each chunk one flat ``fuse_sequence``), volumes as in
+    test_fuse_many_matches_jax, keys exact. The row path stays the
+    default."""
     cfg = _small_data_config()
     cfg.SETTINGS.update(integration="scalar", gather_precision="f32")
-    jpipe = JPipeline(cfg)
-    assert not jpipe.row_path
-    assert not jpipe.packed16_gather
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        Pipeline(Config(cfg), device="cpu")
+    nf = cfg.DATA.n_frames
+    jdata = JSynthetic(cfg.DATA)
+    idxs = [i for pair in zip(range(5), range(nf, nf + 5)) for i in pair]
+    batches = [_batch(jdata[i]) for i in idxs]
+    jdb, db, pipe, jpipe, seen = _fuse_many_pair(cfg, batches, chunk=4)
+    assert not jpipe.row_path and not jpipe.packed16_gather
+    assert not pipe.row_path and not pipe.packed16_gather
+    assert not pipe.dirty_shadow
+    assert seen["port"] == seen["jax"]
+    for s in jdb.scenes:
+        jw = np.asarray(jdb.volumes[s].weights)
+        np.testing.assert_allclose(db.volumes[s].weights.numpy(), jw,
+                                   atol=1e-3, rtol=1e-3)
+        obs = jw > 0.05
+        assert obs.sum() > 100
+        np.testing.assert_allclose(db.volumes[s].tsdf.numpy()[obs],
+                                   np.asarray(jdb.volumes[s].tsdf)[obs],
+                                   atol=1e-3)
+        np.testing.assert_array_equal(db.volumes[s].semkey.numpy(),
+                                      np.asarray(jdb.volumes[s].semkey))
     cfg.SETTINGS.integration = "rows"
     assert JPipeline(cfg).row_path
-    assert Pipeline(Config(cfg), device="cpu").frame_block == 1
+    assert Pipeline(Config(cfg), device="cpu").row_path
 
 
 def _fuse_many_pair(cfg, batches, chunk):

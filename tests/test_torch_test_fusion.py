@@ -77,11 +77,44 @@ def test_entry_point_matches_jax(tmp_path, monkeypatch, jax_mcubes_private):
                                        cfg.TIMESTAMP, "config.json"))
 
 
-# the ids the cases had while the two checkpoint paths were refused too
-# (those are test_entry_point_loads_checkpoints now)
+def test_entry_point_per_frame_matches_jax(tmp_path, monkeypatch,
+                                           jax_mcubes_private):
+    """TESTING.sequence_chunk 1: one ``Pipeline.fuse`` a frame in both
+    entry points (the row path entering and leaving slot form every
+    frame). The bounds of test_entry_point_matches_jax."""
+    import test_fusion as jax_entry
+
+    jcfg = load_config(CFG_SEM)
+    jcfg.SETTINGS.experiment_path = str(tmp_path / "jax")
+    jcfg.TESTING.sequence_chunk = 1
+    want = jax_entry.test_fusion(jcfg)
+
+    params, stats = JPipeline(load_config(CFG_SEM)).init_fusion_params(
+        jax.random.PRNGKey(0), 48, 48)
+    cfg = _port_config(tmp_path, sequence_chunk=1)
+    monkeypatch.setattr(port_entry, "get_data",
+                        lambda name, data_cfg, device:
+                        JSynthetic(data_cfg))
+    got = port_entry.test_fusion(
+        cfg, device="cpu", fusion_net=fusionnet_from_flax(params, stats,
+                                                          cfg.FUSION_MODEL))
+    assert set(got) == set(want)
+    for k in ("mse", "mad", "iou", "acc"):
+        assert abs(got[k] - want[k]) <= 1e-4, (k, got[k], want[k])
+    assert got["sem_Mean Acc"] == want["sem_Mean Acc"]
+    assert got["sem_Mean IoU"] == want["sem_Mean IoU"]
+    for k in ("mesh_fscore", "mesh_precision", "mesh_recall"):
+        assert abs(got[k] - want[k]) <= 0.01, (k, got[k], want[k])
+    assert got["mesh_fscore"] > 0.1 and got["iou"] > 0.05
+    with open(os.path.join(cfg.SETTINGS.experiment_path, cfg.TIMESTAMP,
+                           "logs", "test.log")) as f:
+        assert "fused 10 frames\n" in f.read()
+
+
+# the ids the cases had while the two checkpoint paths and per-frame
+# fusion were refused too (test_entry_point_loads_checkpoints and
+# test_entry_point_per_frame_matches_jax now)
 @pytest.mark.parametrize("testing,data,error", [
-    pytest.param({"sequence_chunk": 1}, {}, NotImplementedError,
-                 id="testing0-data0-NotImplementedError"),
     pytest.param({}, {"semantic_strategy": "predict"}, ValueError,
                  id="testing2-data2-ValueError"),
     pytest.param({}, {"dataset": "Replica"}, NotImplementedError,
@@ -89,9 +122,8 @@ def test_entry_point_matches_jax(tmp_path, monkeypatch, jax_mcubes_private):
 ])
 def test_entry_point_refuses_what_is_not_ported(tmp_path, testing, data,
                                                 error):
-    """Per-frame fusion and the real datasets are later slices, and a
-    predicting segmenter needs its checkpoint: each raises before any
-    frame is fused."""
+    """The real datasets are a later slice, and a predicting segmenter
+    needs its checkpoint: each raises before any frame is fused."""
     cfg = _port_config(tmp_path, **testing)
     cfg.DATA.update(data)
     with pytest.raises(error, match="ROADMAP|semantic_2d_model_path"):
