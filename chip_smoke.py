@@ -106,11 +106,31 @@ Phases, each of which raises (exit code 1, no result line) on failure:
       against CPU, a train-mode step; v2 through ``fuse_sequence_rows``;
    f. the classic fusion (``TSDFVolume`` API, ``tsdf_from_depth_views``
       at 256^3, ``distance_transform``, ``tvl1_refine`` at 128^3), card
-      against CPU.
+      against CPU;
+15. the parallel runners (``segfusion_tpu_torch/parallel``):
+   a. K1-K4 through the scene-folded entry points (one launch on X' =
+      S * X) on 2 scenes of 320^3 f32 and 3 of 84^3 bf16, bit-exact
+      against the per-scene calls and the plain versions (K1 also with an
+      unbatched carry), folded times beside the byte bound; and on 3
+      scenes of 448^3 f32, past 2^31 geo elements, against the per-scene
+      calls;
+   b. ``bench.py`` multi512 through ``SceneParallelFusion.run_sequences``
+      (2 scenes x 512x512, 320^3 at 1 cm, AdapNet++ stage 2 + v3 gf 6,
+      bf16 nets, f32 geo, frame_block 1): aggregate frames/s and peak
+      memory, the same streams one after the other through
+      ``fuse_sequence`` beside it, the two compared (bf16 nets at full
+      size, f32 nets at 96^3);
+   c. ``run`` / ``step`` over phase 6's stream for two scenes, row path
+      and ``integration: scalar``, card against CPU;
+   d. the ``shard_kernels`` wrappers on 4 x-slabs of 448^3 on one card,
+      bit-exact against the unsharded kernels;
+   e. ``SpatialShardedFusion`` ``step`` and ``fuse_sequence`` over 2
+      slabs against the unsharded pipeline, row path and scalar;
+   f. ``parallel.multihost_worker`` as two processes on the card (gloo).
 
 Launch counts are reset just before each main-path run (3c's probe
-mains, 4, 4b, 5, 8, 9, the trainer of 10, 11c and 14's runs) and read
-just after; the kernel checks' launches are not counted.
+mains, 4, 4b, 5, 8, 9, the trainer of 10, 11c, 14's runs and 15b, c and
+e) and read just after; the kernel checks' launches are not counted.
 
 Then one JSON line of per-kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result where
@@ -137,7 +157,7 @@ from segfusion_tpu_torch.config import Config, default_config
 from segfusion_tpu_torch.core import tsdf_volume as ctv
 from segfusion_tpu_torch.core.database import Database
 from segfusion_tpu_torch.core.pipeline import Pipeline
-from segfusion_tpu_torch.core.volume import Voxelgrid
+from segfusion_tpu_torch.core.volume import Voxelgrid, init_scene_volume
 from segfusion_tpu_torch.data.synthetic import Synthetic, SyntheticScene
 from segfusion_tpu_torch.headline import (HEADLINE_SHAPE, build_pipeline,
                                           headline_config, headline_volume,
@@ -153,6 +173,13 @@ from segfusion_tpu_torch.ops.integrate import pack_semantic_key
 from segfusion_tpu_torch.ops.kernels import _build
 from segfusion_tpu_torch.ops.kernels import median3d as k5
 from segfusion_tpu_torch.ops.kernels import shadow_build as sb
+from segfusion_tpu_torch.parallel import shard_kernels
+from segfusion_tpu_torch.parallel.mesh import data_parallel_mesh, scene_mesh
+from segfusion_tpu_torch.parallel.scene_parallel import (SceneParallelFusion,
+                                                         stack_volumes,
+                                                         unstack_volumes)
+from segfusion_tpu_torch.parallel.spatial import (SpatialShardedFusion,
+                                                  unshard_volume_spatial)
 from segfusion_tpu_torch.probes import _lib as probe_lib
 from segfusion_tpu_torch import seg_quality_demo as seg_demo
 from segfusion_tpu_torch import test_segmentation as seg_test
@@ -2348,6 +2375,591 @@ def phase14(dev):
     return counts
 
 
+# -- phase 15: the parallel runners -------------------------------------------
+
+MULTI_SHAPE = (320, 320, 320)       # bench.py multi512: 3.2 m at 1 cm
+
+
+def stacked_slot_states(L, geo_dtype, dev, S, seed=0):
+    """S reachable slot states (``slot_state``) stacked: (S, geo_rows,
+    128) geo and (S, key_rows, 128) keys."""
+    geos, keys = zip(*[slot_state(L, geo_dtype, dev, seed=seed + s)
+                       for s in range(S)])
+    return torch.stack(geos), torch.stack(keys)
+
+
+def folded_kernels(dev):
+    """Phase 15a: K1-K4 through the scene-folded entry points (one launch
+    on X' = S * X) on S=2 scenes of 320^3 f32 geo (multi512's layout) and
+    S=3 of 84^3 bf16 (ragged): bit-exact against the per-scene calls and
+    against the plain versions on the folded layout; K1 also with an
+    unbatched carry (one shadow and one mask for all scenes). Folded
+    K1-K4 timed at 320^3. Returns the folded results for the kernels
+    line."""
+    results = {}
+    for shape, S, geo_dtype in ((MULTI_SHAPE, 2, torch.float32),
+                                ((84, 84, 84), 3, torch.bfloat16)):
+        tag = f"S={S} x {shape[0]}^3 {str(geo_dtype)[6:]}"
+        L = rowvol.RowLayout.for_shape(shape)
+        Lf = L._replace(X=S * L.X)
+        ty, nj = rowvol.shadow_tiling(L)
+        geo, keys = stacked_slot_states(L, geo_dtype, dev, S)
+        geo_f = geo.view(S * L.geo_rows, 128)
+        g = torch.Generator(device=dev).manual_seed(7)
+        prev = torch.randint(-2 ** 31, 2 ** 31 - 1, (S, L.shadow_rows, 128),
+                             generator=g, device=dev, dtype=torch.int32)
+        dirty = (torch.rand((S, L.X * nj + 1), generator=g, device=dev)
+                 < 0.5).int()
+        dirty[:, -1] = 0
+        flags = torch.cat([dirty[:, :-1].reshape(-1), dirty[0, -1:]])
+
+        def per_scene(fn):
+            return torch.stack([fn(s) for s in range(S)])
+
+        full = sb.build_shadow_v(geo, L, ty)
+        d_k = sb.build_shadow_dirty_v(geo, prev.clone(), dirty, L, ty)
+        u_k = sb.build_shadow_dirty_v(geo, prev[0].clone(), dirty[0].clone(),
+                                      L, ty)
+        num_k, w_k = sb.reconcile_slot_v(geo, L)
+        key_k = sb.reconcile_key_v(keys, L)
+        got = {
+            "build_shadow": (full, per_scene(
+                lambda s: sb.build_shadow(geo[s], L, ty)),
+                sb.build_shadow_plain(geo_f, Lf).view_as(full)),
+            "build_shadow_dirty": (d_k, per_scene(
+                lambda s: sb.build_shadow_dirty(geo[s], prev[s].clone(),
+                                                dirty[s].contiguous(), L,
+                                                ty)),
+                sb.build_shadow_dirty_plain(
+                    geo_f, prev.clone().view(-1, 128), flags, Lf,
+                    ty).view_as(d_k)),
+            "build_shadow_dirty (unbatched carry)": (u_k, per_scene(
+                lambda s: sb.build_shadow_dirty(geo[s], prev[0].clone(),
+                                                dirty[0].contiguous(), L,
+                                                ty)), None),
+            "reconcile_slot": (torch.stack([num_k, w_k]), torch.stack([
+                per_scene(lambda s: sb.reconcile_slot(geo[s], L)[i])
+                for i in (0, 1)]), torch.stack([
+                    a.view(S, L.X, L.Y, L.Z)
+                    for a in sb.reconcile_slot_plain(geo_f, Lf)])),
+            "reconcile_key": (key_k, per_scene(
+                lambda s: sb.reconcile_key(keys[s], L)),
+                sb.reconcile_key_plain(keys.view(-1, 128), Lf).view_as(
+                    key_k)),
+        }
+        torch.cuda.synchronize()
+        log(f"15a folded kernels, {tag} (X' = {Lf.X}, "
+            f"{geo.numel() / 2 ** 30:.3f} G geo elements):")
+        for name, (k, per, plain) in got.items():
+            bits = k.view(torch.int32) if k.is_floating_point() else k
+            exact = (torch.equal(bits, per.view(bits.dtype))
+                     and (plain is None
+                          or torch.equal(bits, plain.view(bits.dtype))))
+            err = max(max_abs(k, per),
+                      0.0 if plain is None else max_abs(k, plain))
+            log(f"  {name:38s} exact against the per-scene calls"
+                f"{'' if plain is None else ' and the plain version'}="
+                f"{exact} max_abs_err={err}")
+            if not exact:
+                raise RuntimeError(f"folded {name} ({tag}) disagrees")
+            if shape == MULTI_SHAPE and name in sb.launch_counts():
+                results[name] = {"max_abs_err_folded": err}
+        del got, full, d_k, u_k, num_k, w_k, key_k
+        if shape != MULTI_SHAPE:
+            continue
+        scratch = prev.clone()
+        geo_b = geo.numel() * geo.element_size()
+        key_b = keys.numel() * 4
+        vox = S * L.X * L.Y * L.Z
+        frac = float(dirty[:, :-1].float().mean())
+        runs = {
+            "build_shadow": (lambda: sb.build_shadow_v(geo, L, ty),
+                             geo_b + key_b),
+            "build_shadow_dirty": (lambda: sb.build_shadow_dirty_v(
+                geo, scratch, dirty, L, ty), frac * (geo_b + key_b)),
+            "reconcile_slot": (lambda: sb.reconcile_slot_v(geo, L),
+                               geo_b + 8 * vox),
+            "reconcile_key": (lambda: sb.reconcile_key_v(keys, L),
+                              key_b + 4 * vox),
+        }
+        for name, (fn, moved) in runs.items():
+            ms = cuda_ms(fn, 20)
+            b_ms = bytes_ms(moved)
+            log(f"  {name:20s} folded {ms:.4f} ms ({moved / ms / 1e6:.1f} "
+                f"GB/s of minimum traffic, bound {b_ms:.4f} ms, "
+                f"{b_ms / ms:.3f} of the bound"
+                + (f"; dirty fraction {frac:.3f}"
+                   if name == "build_shadow_dirty" else "") + ")")
+            results[name].update(ms_folded=ms, bound_ms_folded=b_ms)
+        del geo, keys, prev, scratch, geo_f
+        torch.cuda.empty_cache()
+    return results
+
+
+def folded_past_2_31(dev):
+    """Phase 15a: the fold past 2^31 geo elements, S=3 scenes of 448^3
+    f32 geo (3 x 725.7 M): folded K2, K1 (a fresh stream's unbatched
+    all-dirty carry), K3 and K4 bit-exact against the per-scene calls, a
+    scene at a time (the kernels index with 64-bit element offsets)."""
+    S = 3
+    L = rowvol.RowLayout.for_shape(HEADLINE_SHAPE)
+    ty, nj = rowvol.shadow_tiling(L)
+    geo, keys = stacked_slot_states(L, torch.float32, dev, S, seed=11)
+    ok = {}
+    out = sb.build_shadow_v(geo, L, ty)
+    ok["build_shadow"] = all(torch.equal(out[s], sb.build_shadow(
+        geo[s], L, ty)) for s in range(S))
+    del out
+    prev = torch.zeros((L.shadow_rows, 128), dtype=torch.int32, device=dev)
+    dirty = torch.ones(L.X * nj + 1, dtype=torch.int32, device=dev)
+    dirty[-1] = 0
+    out = sb.build_shadow_dirty_v(geo, prev, dirty, L, ty)
+    ok["build_shadow_dirty"] = all(torch.equal(out[s], sb.build_shadow_dirty(
+        geo[s], prev.clone(), dirty, L, ty)) for s in range(S))
+    del out
+    num, w = sb.reconcile_slot_v(geo, L)
+    ok["reconcile_slot"] = all(
+        torch.equal(a[s].view(torch.int32), b.view(torch.int32))
+        for s in range(S)
+        for a, b in zip((num, w), sb.reconcile_slot(geo[s], L)))
+    del num, w
+    out = sb.reconcile_key_v(keys, L)
+    ok["reconcile_key"] = all(torch.equal(out[s], sb.reconcile_key(
+        keys[s], L)) for s in range(S))
+    torch.cuda.synchronize()
+    log(f"15a folded kernels past 2^31, S=3 x 448^3 float32 ({geo.numel()} "
+        f"geo elements, 2^31 = {2 ** 31}): exact against the per-scene "
+        f"calls {ok}")
+    if geo.numel() <= 2 ** 31 or not all(ok.values()):
+        raise RuntimeError("the fold past 2^31 elements disagrees")
+    del geo, keys, out
+    torch.cuda.empty_cache()
+
+
+def multi_config(h: int, w: int, net_dtype: str = "bfloat16"):
+    """``bench.py`` multi512's settings: the headline's nets (AdapNet++
+    stage 2 predicting + FusionNet v3 gf 6 with the semantic head), f32
+    geo, frame_block 1, semantics every frame, the dirty carry on."""
+    cfg = headline_config(h, w)
+    cfg.FUSION_MODEL.compute_dtype = net_dtype
+    cfg.SEMANTIC_2D_MODEL.compute_dtype = net_dtype
+    cfg.SETTINGS.update(frame_block=1, sem_integrate_every=1,
+                        geo_dtype="float32", dirty_shadow="on")
+    return cfg
+
+
+def multi_frames(S: int, n: int, h: int, w: int, dev, reps: int = 1):
+    """(S, n * reps, ...) frames: scene s renders SyntheticScene(seed=s,
+    half=1.5) from n poses, repeated ``reps`` times."""
+    per = [render_frames(n, h, w, dev, scene=SyntheticScene(seed=s, half=1.5))
+           for s in range(S)]
+    return {k: torch.stack([torch.cat([p[k]] * reps) for p in per])
+            for k in per[0]}
+
+
+def multi_volumes(S: int, shape, dev):
+    return stack_volumes([init_scene_volume(shape, [-1.6] * 3,
+                                            3.2 / shape[0], 0.1, device=dev)
+                          for _ in range(S)])
+
+
+def one_after_the_other(pipe, frames, passes: int, shape, dev):
+    """Each scene's stream through ``fuse_sequence`` ``passes`` times,
+    scene after scene; (volumes, seconds of the last pass over all
+    scenes)."""
+    vols = [init_scene_volume(shape, [-1.6] * 3, 3.2 / shape[0], 0.1,
+                              device=dev) for _ in range(frames["depth"].shape[0])]
+    dt = 0.0
+    for p in range(passes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vols = [pipe.fuse_sequence(v, {k: x[s] for k, x in frames.items()})
+                for s, v in enumerate(vols)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return vols, dt
+
+
+class Agreement(NamedTuple):
+    """Two runs' volumes over all scenes: max |dw|, max |dnum|; voxels
+    whose w is past atol 1e-4 + rtol 1e-4, voxels whose num or w is;
+    observed voxels (w > 0); on the voxels with w > 0.05, max |dtsdf| and
+    the counts past 1e-3 and 1e-2; keys differing."""
+    dw: float
+    dn: float
+    w_over: int
+    over: int
+    observed: int
+    dtsdf: float
+    tsdf_over_1e3: int
+    tsdf_over_1e2: int
+    keys_off: int
+
+
+def folded_against_sequential(folded, seq) -> Agreement:
+    dw = dn = dt = 0.0
+    w_over = over = observed = t3 = t2 = keys_off = 0
+    for v, ref in zip(folded, seq):
+        a = (v.weights - ref.weights).abs()
+        b = (v.num - ref.num).abs()
+        dw, dn = max(dw, float(a.max())), max(dn, float(b.max()))
+        wo = a > 1e-4 + 1e-4 * ref.weights.abs()
+        w_over += int(wo.sum())
+        over += int((wo | (b > 1e-4 + 1e-4 * ref.num.abs())).sum())
+        observed += int((ref.weights > 0).sum())
+        obs = ref.weights > 0.05
+        t = (v.tsdf[obs] - ref.tsdf[obs]).abs()
+        dt = max(dt, float(t.max()))
+        t3 += int((t > 1e-3).sum())
+        t2 += int((t > 1e-2).sum())
+        keys_off += int((v.semkey != ref.semkey).sum())
+    return Agreement(dw, dn, w_over, over, observed, dt, t3, t2, keys_off)
+
+
+def agreement_text(a: Agreement) -> str:
+    return (f"max |dw| {a.dw:.3g}, max |dnum| {a.dn:.3g}, voxels past atol "
+            f"1e-4 + rtol 1e-4: {a.over} of {a.observed} observed (w alone: "
+            f"{a.w_over}); tsdf where w > 0.05: max |dtsdf| {a.dtsdf:.3g}, "
+            f"past 1e-3 {a.tsdf_over_1e3}, past 1e-2 {a.tsdf_over_1e2}; "
+            f"keys differing {a.keys_off}")
+
+
+def bf16_nets_agree(a: Agreement) -> bool:
+    """The bound for the bf16-net comparison of 15b (see ``multi512``)."""
+    return (a.keys_off == 0 and a.w_over == 0 and a.observed > 0
+            and a.tsdf_over_1e3 <= 2e-2 * a.observed
+            and a.tsdf_over_1e2 <= 1e-3 * a.observed and a.dtsdf <= 0.05)
+
+
+def multi512(dev):
+    """Phase 15b: ``bench.py`` multi512 at full width through
+    ``SceneParallelFusion.run_sequences``: 2 scenes x 512x512, 320^3 at 1
+    cm each, 8 rendered frames a scene repeated twice; a warm-up run,
+    then one timed (aggregate frames/s, peak memory). The same streams
+    fused one after the other through ``fuse_sequence`` (a figure, not a
+    claim), and the two held together. With bf16 nets at full size: keys
+    exact, weights within atol 1e-4 + rtol 1e-4 (geometry only: the
+    atomics' order), and the tsdf (num / w where w > 0.05) within 1e-3 on
+    all but 2% of the observed voxels, within 1e-2 on all but 0.1%, and
+    within 0.05 everywhere: cuDNN's bf16 FusionNet gives a batch of two
+    frames other outputs than one frame at a time (10.5% of them, by up to
+    2e-4, on an H100), and the recurrence carries them (measured on an
+    H100 in two runs: 66,006 and 67,606 past 1e-3, 801 and 867 past 1e-2
+    of 8,227,908 observed voxels, max 0.0264). With f32 nets (TF32 off,
+    cuDNN's deterministic algorithms: its default f32 AdapNet++ gives
+    scores ~1e-8 apart from one call to the next) at 96^3 and 128x128, 4
+    frames a scene twice: every voxel within atol 1e-4 + rtol 1e-4 and
+    keys exact. Returns the launch counts of the runs."""
+    cfg = multi_config(512, 512)
+    pipe = build_pipeline(cfg, dev)
+    frames = multi_frames(2, 8, 512, 512, dev, reps=2)
+    n = frames["depth"].shape[0] * frames["depth"].shape[1]
+    runner = SceneParallelFusion(pipe)
+    vols = runner.run_sequences(multi_volumes(2, MULTI_SHAPE, dev), frames)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vols = runner.run_sequences(vols, frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"15b multi512 (2 scenes x 512x512, 320^3 at 1 cm, AdapNet++ stage "
+        f"2 + v3 gf 6, bf16 nets, f32 geo, frame_block 1, sem every frame, "
+        f"dirty carry; mesh {len(runner.mesh.devices)} device): {n} frames "
+        f"in {dt:.3f} s = {n / dt:.2f} aggregate frames/s; peak "
+        f"{peak:.2f} GiB; launches {counts}")
+    folded = unstack_volumes(vols, 2)
+    for s, v in enumerate(folded):
+        check_volume(v, f"multi512 scene {s}")
+    require(counts, ["build_shadow_dirty", "reconcile_slot",
+                     "reconcile_key"], "multi512")
+    reset_counts()
+    seq, dt_seq = one_after_the_other(pipe, frames, 2, MULTI_SHAPE, dev)
+    more = read_counts()
+    log(f"  the same streams one after the other through fuse_sequence: "
+        f"{n} frames in {dt_seq:.3f} s = {n / dt_seq:.2f} frames/s "
+        f"(folded / one after the other: {dt_seq / dt:.3f}); launches "
+        f"{more}")
+    agree = folded_against_sequential(folded, seq)
+    log(f"  folded against one after the other, bf16 nets: "
+        f"{agreement_text(agree)}")
+    if not bf16_nets_agree(agree):
+        raise RuntimeError("multi512: the folded run and the scenes one "
+                           "after the other disagree (bf16 nets)")
+    del vols, folded, seq, runner, pipe, frames
+    torch.cuda.empty_cache()
+    # the reduced f32 check
+    cfg = multi_config(128, 128, "float32")
+    pipe = build_pipeline(cfg, dev, seed=4)
+    frames = multi_frames(2, 4, 128, 128, dev, reps=2)
+    reset_counts()
+    torch.backends.cudnn.deterministic = True
+    try:
+        folded = unstack_volumes(SceneParallelFusion(pipe).run_sequences(
+            multi_volumes(2, (96, 96, 96), dev), frames), 2)
+        seq, _ = one_after_the_other(pipe, frames, 1, (96, 96, 96), dev)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    c = read_counts()
+    ids_off = sum(int((v.semantics != r.semantics).sum())
+                  for v, r in zip(folded, seq))
+    log(f"  f32 nets, cuDNN deterministic: semantic ids differing {ids_off}")
+    agree = folded_against_sequential(folded, seq)
+    log(f"  f32 nets, 96^3, 128x128, 2 x 8 frames: {agreement_text(agree)}")
+    if not (agree.over == 0 and agree.keys_off == 0
+            and agree.observed > 1000):
+        raise RuntimeError("multi-scene fusion: the folded run and the "
+                           "scenes one after the other disagree (f32 nets)")
+    return {k: counts[k] + more[k] + c[k] for k in counts}
+
+
+def small_streams():
+    """Phase 6's small stream (64^3, 32x32, 6 frames) for two scenes, the
+    second over SyntheticScene(seed=1): host frames, one list a scene."""
+    fr = [render_frames(6, 32, 32, "cpu"),
+          render_frames(6, 32, 32, "cpu",
+                        scene=SyntheticScene(seed=1, half=2.2))]
+    return [[{k: v[i].numpy() for k, v in f.items()} for i in range(6)]
+            for f in fr]
+
+
+def small_config():
+    """Phase 6's configuration: f32 nets (TF32 off), the exact
+    recurrence."""
+    cfg = headline_config(32, 32)
+    cfg.FUSION_MODEL.update(growth_factor=2, compute_dtype="float32")
+    cfg.SEMANTIC_2D_MODEL.compute_dtype = "float32"
+    cfg.SETTINGS.update(frame_block=1, sem_integrate_every=1,
+                        geo_dtype="float32")
+    return cfg
+
+
+def card_and_cpu_pipelines(cfg, dev, seed=3):
+    cpu_pipe = build_pipeline(cfg, "cpu", seed=seed)
+    seg = SegmenterAdapter(copy.deepcopy(cpu_pipe.segmenter.model).to(dev))
+    return cpu_pipe, Pipeline(cfg, segmenter=seg, device=dev,
+                              fusion_net=copy.deepcopy(cpu_pipe.fusion_net))
+
+
+def compare_small(what, ref, got):
+    """Phase 6's tolerances: weights atol 1e-3 + rtol 1e-3, tsdf 1e-3
+    where the weight passes 0.05, semantic ids on 99% of labelled
+    voxels."""
+    rw, gw = ref.weights.cpu(), got.weights.cpu()
+    obs = rw > 0.05
+    t_err = float((got.tsdf.cpu()[obs] - ref.tsdf.cpu()[obs]).abs().max())
+    lab = ref.semkey.cpu() > 0
+    share = float((got.semantics.cpu()[lab] == ref.semantics.cpu()[lab])
+                  .float().mean())
+    log(f"  {what}: max |dw| {float((gw - rw).abs().max()):.3g}, max "
+        f"|dtsdf| {t_err:.3g} on {int(obs.sum())} voxels, semantic id "
+        f"agreement {share:.4f}")
+    if not (torch.allclose(gw, rw, atol=1e-3, rtol=1e-3) and t_err <= 1e-3
+            and int(obs.sum()) > 1000 and share >= 0.99):
+        raise RuntimeError(f"{what}: card and CPU disagree")
+
+
+def small_runner(dev):
+    """Phase 15c: ``SceneParallelFusion.run`` (a ``step`` a frame) over
+    phase 6's stream for two scenes, on the row path and under
+    ``integration: scalar``, on the card against the CPU. Returns the
+    card runs' launch counts."""
+    streams = small_streams()
+    counts = {}
+    for integration in ("rows", "scalar"):
+        cfg = small_config()
+        cfg.SETTINGS.integration = integration
+        cpu_pipe, gpu_pipe = card_and_cpu_pipelines(cfg, dev)
+        ref = SceneParallelFusion(cpu_pipe, scene_mesh(devices=["cpu"])).run(
+            [headline_volume("cpu", (64, 64, 64)) for _ in range(2)],
+            streams)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = SceneParallelFusion(gpu_pipe).run(
+            [headline_volume(dev, (64, 64, 64)) for _ in range(2)], streams)
+        torch.cuda.synchronize()
+        c = read_counts()
+        log(f"15c run/step, {integration}, 2 scenes (card vs CPU, 64^3, 6 "
+            f"frames): launches {c}")
+        for s in range(2):
+            compare_small(f"scene {s}", ref[s], got[s])
+        if integration == "rows":
+            for k in ("build_shadow", "reconcile_slot", "reconcile_key"):
+                if c[k] != 6:
+                    raise RuntimeError(f"15c: {k} launched {c[k]} times "
+                                       "for 6 folded steps")
+        counts = {k: counts.get(k, 0) + n for k, n in c.items()}
+    return counts
+
+
+def sharded_kernels(dev):
+    """Phase 15d: the four ``shard_kernels`` wrappers over 4 x-slabs of
+    448^3 (bf16 geo) on the one card (mesh [cuda:0] x 4), bit-exact
+    against the unsharded kernels; the dirty build (a random 0.5 mask
+    into a random previous shadow) in place in each slab's shadow."""
+    L = rowvol.RowLayout.for_shape(HEADLINE_SHAPE)
+    ty, nj = rowvol.shadow_tiling(L)
+    mesh = data_parallel_mesh("x", [dev] * 4)
+    geo, keys = slot_state(L, torch.bfloat16, dev, seed=5)
+    prev, dirty = random_shadow_and_mask(L, nj, dev, seed=6)
+    sharded_prev = prev.clone()
+    ok = {
+        "build_shadow": torch.equal(
+            torch.cat(shard_kernels.sharded_build_shadow(geo, L, mesh)),
+            sb.build_shadow(geo, L, ty)),
+        "build_shadow_dirty": (
+            shard_kernels.sharded_build_shadow_dirty(
+                geo, sharded_prev, dirty, L, mesh) is not None
+            and torch.equal(sharded_prev, sb.build_shadow_dirty(
+                geo, prev.clone(), dirty, L, ty))),
+        "reconcile_slot": all(
+            torch.equal(torch.cat(a).view(torch.int32), b.view(torch.int32))
+            for a, b in zip(shard_kernels.sharded_reconcile_slot(geo, L,
+                                                                 mesh),
+                            sb.reconcile_slot(geo, L))),
+        "reconcile_key": torch.equal(
+            torch.cat(shard_kernels.sharded_reconcile_key(keys, L, mesh)),
+            sb.reconcile_key(keys, L)),
+    }
+    torch.cuda.synchronize()
+    log(f"15d shard_kernels, 4 x-slabs of 448^3 bf16 on one card: "
+        f"{ok}")
+    if not all(ok.values()):
+        raise RuntimeError("sharded kernels disagree with the unsharded")
+
+
+def spatial(dev):
+    """Phase 15e: ``SpatialShardedFusion`` ``step`` (6 frames) and
+    ``fuse_sequence`` over 2 x-slabs on the card (mesh [cuda:0] x 2)
+    against the unsharded pipeline on the card, phase 6's stream, on the
+    row path and under ``integration: scalar``: num within
+    tests/test_spatial_sharding.py's 1e-3 and keys exact; weights within
+    its atol 1e-4 plus rtol 1e-5, for the card's float atomics sum a
+    voxel's updates in any order (the flat path's unsharded step against
+    itself is printed beside it; measured on an H100: the sharded flat
+    step 2.44e-4 from the unsharded one, the row path 6.1e-5; the CPU
+    tests hold both bit-exact). Returns the sharded row runs' launch
+    counts."""
+    frames = render_frames(6, 32, 32, dev)
+    counts = {}
+    for integration in ("rows", "scalar"):
+        cfg = small_config()
+        cfg.SETTINGS.integration = integration
+        pipe = build_pipeline(cfg, dev, seed=3)
+        runner = SpatialShardedFusion(pipe,
+                                      data_parallel_mesh("x", [dev] * 2))
+        torch.cuda.synchronize()
+        reset_counts()
+        slabs = runner.shard(headline_volume(dev, (64, 64, 64)))
+        for i in range(6):
+            slabs = runner.step(slabs, {k: x[i] for k, x in frames.items()})
+        stepped = unshard_volume_spatial(slabs)
+        streamed = unshard_volume_spatial(runner.fuse_sequence(
+            runner.shard(headline_volume(dev, (64, 64, 64))), frames))
+        torch.cuda.synchronize()
+        c = read_counts()
+        refs = []
+        for _ in range(2):
+            ref = headline_volume(dev, (64, 64, 64))
+            for i in range(6):
+                ref = pipe.step_fuse_impl(ref, {k: x[i:i + 1]
+                                                for k, x in frames.items()})
+            refs.append(ref)
+        spread = float((refs[0].weights - refs[1].weights).abs().max())
+        ref_seq = pipe.fuse_sequence(headline_volume(dev, (64, 64, 64)),
+                                     frames)
+        for what, v, r in (("step", stepped, refs[0]),
+                           ("fuse_sequence", streamed, ref_seq)):
+            dw = (v.weights - r.weights).abs()
+            w_ok = bool((dw <= 1e-4 + 1e-5 * r.weights.abs()).all())
+            dn = float((v.num - r.num).abs().max())
+            keys = int((v.semkey != r.semkey).sum())
+            obs = int((r.weights > 0.05).sum())
+            log(f"15e spatial {what}, {integration}, 2 slabs (64^3, 6 "
+                f"frames): max |dw| {float(dw.max()):.3g} (the unsharded "
+                f"step against itself: {spread:.3g}), max |dnum| {dn:.3g}, "
+                f"keys differing {keys}, {obs} observed voxels")
+            if not (w_ok and dn <= 1e-3 and keys == 0 and obs > 1000):
+                raise RuntimeError(f"spatial {what} ({integration}) "
+                                   "disagrees with the unsharded pipeline")
+        log(f"  launches {c}")
+        if integration == "rows":
+            require(c, ["build_shadow", "build_shadow_dirty",
+                        "reconcile_slot", "reconcile_key"], "spatial")
+        counts = {k: counts.get(k, 0) + n for k, n in c.items()}
+    return counts
+
+
+def multihost_run():
+    """Phase 15f: ``segfusion_tpu_torch.parallel.multihost_worker`` as two
+    processes on the one card, joined by ``torch.distributed`` over gloo
+    on localhost: the scene shards disjoint and covering, the all-reduced
+    total the same on both and equal to the sum of the locals."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "segfusion_tpu_torch.parallel.multihost_worker",
+         str(i), "2", str(port), "--device", "cuda"], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise RuntimeError(f"multihost worker failed:\n{err[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    recs = [json.loads([ln for ln in out.splitlines()
+                        if "MULTIHOST_OK" in ln][-1]) for out in outs]
+    for r in recs:
+        log(f"15f {json.dumps(r)}")
+    scenes = [set(r["scenes"]) for r in recs]
+    total = sum(r["local_sum"] for r in recs)
+    if not (sorted(r["process"] for r in recs) == [0, 1]
+            and not (scenes[0] & scenes[1])
+            and len(scenes[0] | scenes[1]) == 5
+            and all(r["backend"] == "gloo" and r["device"].startswith("cuda")
+                    for r in recs)
+            and all(abs(r["global_sum"] - total) <= 1e-9 * total
+                    for r in recs) and total > 0):
+        raise RuntimeError("multihost: shards or the all-reduce are wrong")
+
+
+def phase15(dev):
+    """Phase 15 (a-f); returns (the folded kernel results, the main-path
+    launch counts of 15b, 15c and 15e)."""
+    t_all = time.perf_counter()
+    counts = {}
+    t0 = time.perf_counter()
+    folded = folded_kernels(dev)
+    folded_past_2_31(dev)
+    log(f"  15a: {time.perf_counter() - t0:.1f} s")
+    for name, run in (("15b", lambda: multi512(dev)),
+                      ("15c", lambda: small_runner(dev)),
+                      ("15d", lambda: sharded_kernels(dev)),
+                      ("15e", lambda: spatial(dev)),
+                      ("15f", multihost_run)):
+        t0 = time.perf_counter()
+        more = run()
+        torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+        for k, n in (more or {}).items():
+            counts[k] = counts.get(k, 0) + n
+    log(f"phase 15: {time.perf_counter() - t_all:.1f} s")
+    return folded, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2402,6 +3014,11 @@ def main() -> int:
     log(f"phases 11-13 (segmentation): {time.perf_counter() - t0:.1f} s")
     for k, n in phase14(dev).items():
         launches[k] += n
+    folded, more = phase15(dev)
+    for k, n in more.items():
+        launches[k] += n
+    for name, r in folded.items():
+        results[name].update(r)
 
     replaces = {"build_shadow_dirty": f"{PALLAS}:359",
                 "build_shadow": f"{PALLAS}:254",

@@ -23,6 +23,17 @@ semantic-decimation phase is an ``if`` on a host int. Kernel dispatch
 follows the tensors' device (``ops/kernels/shadow_build.py``): a pipeline
 on ``cuda`` runs the CUDA kernels, on ``cpu`` their plain versions.
 
+Scenes (``step_fuse_scenes`` / ``fuse_sequence_scenes``), the
+counterpart of the JAX package's ``jax.vmap`` of ``step_fuse_impl`` and
+``fuse_sequence_impl``: S same-shape scenes stacked on a leading axis (a
+``SceneVolume`` of (S, X, Y, Z) tensors, origin (S, 3), resolution (S,);
+frames (S, T, ...)) fuse together. The nets run once a step over all the
+scenes' frames; on the row path the S slot states are one volume of S * X
+x-planes for the kernels (one launch each, ``ops/kernels/shadow_build.py``
+``*_v``), each scene's bounds applied before its row offset
+(``rowvol.corner_rows_scenes``); the flat path extracts scene by scene
+and integrates through linear indices offset by ``s * X * Y * Z``.
+
 Training (``train_sequence_rows`` / ``step_train_rows_impl``) runs the
 same front end per frame, then FusionNet in train mode against the
 ground truth read from a packed gt shadow, and the fusion loss; each
@@ -188,14 +199,19 @@ class Pipeline:
 
     def _sem_prepass_frames(self, frames):
         """Attach the chunk's predicted semantics (``sem_ids_pre`` /
-        ``sem_scores_pre``) to a (T, ...) frame dict: the prediction
-        depends only on the frame, so it runs batched before the loop."""
+        ``sem_scores_pre``, (..., h*w)) to a (T, ...) or (S, T, ...) frame
+        dict: the prediction depends only on the frame, so it runs batched
+        over all the frames before the loop."""
         if ("sem_ids_pre" in frames or not (
                 self.semantics and self.semantic_strategy == "predict")):
             return frames
+        image, depth = frames["image"], frames["depth_input"]
+        lead = depth.shape[:-2]
         ids, scores = self._predict_semantics_batched(
-            frames["image"], frames["depth_input"])
-        return dict(frames, sem_ids_pre=ids, sem_scores_pre=scores)
+            image.reshape((-1,) + image.shape[-3:]),
+            depth.reshape((-1,) + depth.shape[-2:]))
+        return dict(frames, sem_ids_pre=ids.reshape(lead + (-1,)),
+                    sem_scores_pre=scores.reshape(lead + (-1,)))
 
     def _block_semantics(self, frames):
         """(sem_ids, scores), each (k, h*w): the pre-pass values, or the
@@ -220,6 +236,23 @@ class Pipeline:
     def _rows_from_volume(self, volume: SceneVolume):
         layout = rowvol.RowLayout.for_shape(tuple(volume.num.shape))
         return layout, self._enter_rows(layout, volume)
+
+    def _enter_rows_scenes(self, layout, volumes: SceneVolume
+                           ) -> rowvol.RowVolume:
+        """Stacked canonical volumes -> (S, rows, 128) slot states."""
+        geo, key = rowvol.rows_from_volumes(volumes.num, volumes.weights,
+                                            volumes.semkey, layout,
+                                            geo_dtype=self.geo_dtype)
+        return rowvol.RowVolume(geo=geo, key=key, origin=volumes.origin,
+                                resolution=volumes.resolution,
+                                init_value=volumes.init_value)
+
+    @staticmethod
+    def _exit_rows_scenes(layout, rv: rowvol.RowVolume) -> SceneVolume:
+        num, w, key = rowvol.volumes_from_rows(rv.geo, rv.key, layout)
+        return SceneVolume(num=num, weights=w, semkey=key, origin=rv.origin,
+                           resolution=rv.resolution,
+                           init_value=rv.init_value)
 
     @staticmethod
     def _exit_rows(layout, rv: rowvol.RowVolume) -> SceneVolume:
@@ -258,7 +291,9 @@ class Pipeline:
 
     def _new_stream(self, layout, rv: rowvol.RowVolume) -> RowStream:
         """Fresh streaming state: an all-dirty mask over a zero shadow, so
-        the first step rebuilds every tile."""
+        the first step rebuilds every tile. For S scenes the carry starts
+        without the scene axis and the first dirty build broadcasts it, as
+        under the JAX package's vmap."""
         if not self.dirty_shadow:
             return RowStream(rv, None, None)
         _, NJ = rowvol.shadow_tiling(layout)
@@ -305,18 +340,88 @@ class Pipeline:
             new_carry = None
         fv, fw = rowvol.extract_rows(shadow, cr, self.init_value,
                                      geometry.INVALID_TSDF_FILL)
-
-        inputs = {
-            "tsdf_values": fv.reshape(k, h, w, p),
-            "tsdf_weights": fw.reshape(k, h, w, p),
-            "tsdf_frame": depth.reshape(k, h, w, 1),
-        }
-        if self.use_semantics:
-            sem = (1.0 + sem_ids.float()) / self.n_classes
-            inputs["semantic_frame"] = sem.reshape(k, h, w, 1)
+        inputs = self._row_net_inputs(fv, fw, depth, sem_ids)
         ray_mask = (torch.where(frames["mask"], depth, 0.0).reshape(-1)
                     != 0.0)
         return cr, fv, fw, inputs, ray_mask, new_carry
+
+    def _row_net_inputs(self, fv, fw, depth, sem_ids):
+        """The NHWC net inputs of B frames' extraction: ``fv``/``fw``
+        (B*h*w, p), ``depth`` (..., h, w) with B frames, ``sem_ids``
+        (B, h*w) or None."""
+        h, w = depth.shape[-2:]
+        p = self.n_points
+        inputs = {
+            "tsdf_values": fv.reshape(-1, h, w, p),
+            "tsdf_weights": fw.reshape(-1, h, w, p),
+            "tsdf_frame": depth.reshape(-1, h, w, 1),
+        }
+        if self.use_semantics:
+            sem = (1.0 + sem_ids.float()) / self.n_classes
+            inputs["semantic_frame"] = sem.reshape(-1, h, w, 1)
+        return inputs
+
+    def _row_frontend_scenes(self, layout, rv: rowvol.RowVolume, frames,
+                             sem_ids, shadow_carry=None):
+        """:meth:`_row_frontend` of S scenes' k-frame blocks (``frames``
+        leaves lead with (S, k); ``rv`` holds (S, rows, 128) states and
+        each scene's origin and resolution): the samples of each scene in
+        its own voxel space, the corner rows folded into one volume of
+        S * X x-planes, one shadow build for all scenes (dirty: the
+        carried (S, shadow_rows, 128) shadow, updated in place, and the
+        (S, X * NJ + 1) masks, one a scene), one extraction. Rays are
+        scene-major; ``sem_ids`` (S * k, h*w)."""
+        depth = frames["depth"]                        # (S, k, h, w)
+        S, k, h, w = depth.shape
+        p, t = self.n_points, self.n_tail_points
+        points_w = geometry.unproject(depth, frames["extrinsics"],
+                                      frames["intrinsics"])  # (S, k, n, 3)
+        eyes = frames["extrinsics"][..., :3, 3].float()
+        points_v = geometry.sample_ray_points(
+            points_w, eyes, rv.origin[:, None, None],
+            rv.resolution[:, None, None, None], p).reshape(S, k * h * w, p,
+                                                           3)
+        cr = rowvol.corner_rows_scenes(points_v, layout)
+        if shadow_carry is not None:
+            prev_shadow, dirty = shadow_carry
+            shadow = rowvol.build_shadow_dirty_v(rv.geo, prev_shadow, dirty,
+                                                 layout)
+            new_carry = (shadow, torch.stack([
+                rowvol.dirty_tile_mask(pv[:, :t], layout)
+                for pv in points_v]))
+        else:
+            shadow = rowvol.build_shadow_v(rv.geo, layout)
+            new_carry = None
+        fv, fw = rowvol.extract_rows(shadow, cr, self.init_value,
+                                     geometry.INVALID_TSDF_FILL)
+        inputs = self._row_net_inputs(fv, fw, depth, sem_ids)
+        ray_mask = (torch.where(frames["mask"], depth, 0.0).reshape(-1)
+                    != 0.0)
+        return cr, inputs, ray_mask, new_carry
+
+    def _estimate_updates(self, cr, inputs, sem_ids, scores, ray_mask,
+                          geo_dtype, do_sem=None) -> rowvol.RowUpdates:
+        """FusionNet over the block's B frames, then the row updates of
+        the clipped tail estimates (and with semantics the packed keys)."""
+        B, h, w = inputs["tsdf_frame"].shape[:3]
+        n = h * w
+        p, t = self.n_points, self.n_tail_points
+        est = self.fusion_net(inputs).reshape(B, n, -1)[..., :p]
+        upd_values = torch.clamp(est[..., :t], -self.init_value,
+                                 self.init_value).reshape(B * n, t)
+        sem_key = (pack_semantic_key(scores.reshape(-1), sem_ids.reshape(-1))
+                   if self.semantics else None)
+        return rowvol.row_updates(cr, upd_values, sem_key, ray_mask, t,
+                                  geo_dtype, do_sem)
+
+    def _integrate_estimate(self, rv: rowvol.RowVolume, cr, inputs, sem_ids,
+                            scores, ray_mask, do_sem=None) -> None:
+        """:meth:`_estimate_updates` into the slot state in place: one geo
+        scatter-add, one key scatter-max."""
+        rowvol.scatter_updates(
+            rv.geo.view(-1, 128), rv.key.view(-1, 128),
+            self._estimate_updates(cr, inputs, sem_ids, scores, ray_mask,
+                                   rv.geo.dtype, do_sem))
 
     def step_fuse_rows_block_impl(self, layout, rv: rowvol.RowVolume, frames,
                                   shadow_carry=None, do_sem=None):
@@ -327,24 +432,30 @@ class Pipeline:
         exact per-frame step (the JAX package's ``step_fuse_rows_impl``).
         ``shadow_carry`` (prev_shadow, dirty) turns on the dirty rebuild.
         Returns ``(rv, new_carry)`` (carry None iff shadow_carry was)."""
-        k, h, w = frames["depth"].shape
-        n = h * w
-        p, t = self.n_points, self.n_tail_points
-        if self.semantics:
-            sem_ids, scores = self._block_semantics(frames)
-        else:
-            sem_ids = scores = None
+        sem_ids, scores = (self._block_semantics(frames) if self.semantics
+                           else (None, None))
         cr, _, _, inputs, ray_mask, new_carry = self._row_frontend(
             layout, rv, frames, sem_ids, shadow_carry)
-        est = self.fusion_net(inputs).reshape(k, n, -1)[..., :p]
+        self._integrate_estimate(rv, cr, inputs, sem_ids, scores, ray_mask,
+                                 do_sem)
+        return rv, new_carry
 
-        upd_values = torch.clamp(est[..., :t], -self.init_value,
-                                 self.init_value).reshape(k * n, t)
-        sem_key = (pack_semantic_key(scores.reshape(-1), sem_ids.reshape(-1))
-                   if self.semantics else None)
-        geo, key = rowvol.integrate_rows(rv.geo, rv.key, cr, upd_values,
-                                         sem_key, ray_mask, t, do_sem=do_sem)
-        return rv._replace(geo=geo, key=key), new_carry
+    def step_fuse_rows_block_scenes(self, layout, rv: rowvol.RowVolume,
+                                    frames, shadow_carry=None, do_sem=None):
+        """:meth:`step_fuse_rows_block_impl` of S scenes (``frames``
+        leaves lead with (S, k), ``rv`` holds (S, rows, 128) states): the
+        nets run once over the S * k frames, the kernels once over the
+        folded volume. Returns ``(rv, new_carry)``."""
+        S, k = frames["depth"].shape[:2]
+        sem_ids, scores = (self._block_semantics(
+            {key: x.reshape((S * k,) + x.shape[2:])
+             for key, x in frames.items()}) if self.semantics
+            else (None, None))
+        cr, inputs, ray_mask, new_carry = self._row_frontend_scenes(
+            layout, rv, frames, sem_ids, shadow_carry)
+        self._integrate_estimate(rv, cr, inputs, sem_ids, scores, ray_mask,
+                                 do_sem)
+        return rv, new_carry
 
     def step_train_rows_impl(self, layout, rv: rowvol.RowVolume, gt_shadow,
                              frame, shadow_carry=None):
@@ -535,23 +646,39 @@ class Pipeline:
         1 the chunk pads to a multiple of k with all-masked copies of its
         last frame (no-op integrations). The semantic-decimation phase is
         per chunk: its step 0 always integrates semantics."""
+        return self._fuse_rows(layout, stream, frames,
+                               self.step_fuse_rows_block_impl, 0)
+
+    @torch.no_grad()
+    def fuse_sequence_rows_scenes(self, layout, stream: RowStream,
+                                  frames: Dict[str, torch.Tensor]
+                                  ) -> RowStream:
+        """:meth:`fuse_sequence_rows` of S scenes: ``stream`` carries
+        (S, rows, 128) slot states, ``frames`` leaves lead with (S, T)."""
+        return self._fuse_rows(layout, stream, frames,
+                               self.step_fuse_rows_block_scenes, 1)
+
+    def _fuse_rows(self, layout, stream: RowStream, frames, step,
+                   axis: int) -> RowStream:
+        """The block loop over time axis ``axis`` of ``frames``."""
         frames = self._sem_prepass_frames(frames)
         decimate = self.semantics and self.sem_every > 1
-        T = frames["depth"].shape[0]
+        T = frames["depth"].shape[axis]
         kb = self.frame_block
         pad = (-T) % kb
         if pad:
-            frames = {key: torch.cat([x, x[-1:].expand(
-                (pad,) + x.shape[1:])]) for key, x in frames.items()}
-            frames["mask"][T:] = False
+            frames = {key: torch.cat([x, x.narrow(axis, T - 1, 1).expand(
+                x.shape[:axis] + (pad,) + x.shape[axis + 1:])], axis)
+                for key, x in frames.items()}
+            frames["mask"].narrow(axis, T, pad).fill_(False)
         for idx in range((T + pad) // kb):
-            block = {key: x[idx * kb:(idx + 1) * kb]
+            block = {key: x.narrow(axis, idx * kb, kb)
                      for key, x in frames.items()}
             carry = (None if stream.shadow is None
                      else (stream.shadow, stream.dirty))
             do_sem = (idx % self.sem_every == 0) if decimate else None
-            rv, carry = self.step_fuse_rows_block_impl(
-                layout, stream.rv, block, shadow_carry=carry, do_sem=do_sem)
+            rv, carry = step(layout, stream.rv, block, shadow_carry=carry,
+                             do_sem=do_sem)
             stream = (RowStream(rv, None, None) if carry is None
                       else RowStream(rv, carry[0], carry[1]))
         return stream
@@ -570,6 +697,85 @@ class Pipeline:
         stream = self.fuse_sequence_rows(layout, self._new_stream(layout, rv),
                                          frames)
         return self._exit_rows(layout, stream.rv)
+
+    # -- scenes ----------------------------------------------------------------
+
+    @torch.no_grad()
+    def step_fuse_scenes(self, volumes: SceneVolume, frames) -> SceneVolume:
+        """One inference frame of each of S stacked scenes (``frames``
+        leaves lead with (S, 1)): ``jax.vmap`` of the JAX package's
+        ``step_fuse_impl``. Row path: enter slot form, one folded row step
+        with a full shadow build, exit -- new volumes. Flat path: each
+        scene's extraction, FusionNet once over the S frames, then one
+        scatter-add (and key scatter-max) into the stacked state in place
+        through linear indices offset by ``s * X * Y * Z``."""
+        if self.row_path:
+            layout = rowvol.RowLayout.for_shape(tuple(volumes.num.shape[1:]))
+            rv = self._enter_rows_scenes(layout, volumes)
+            rv, _ = self.step_fuse_rows_block_scenes(
+                layout, rv, self._sem_prepass_frames(frames))
+            return self._exit_rows_scenes(layout, rv)
+        frames = {k: x[:, 0] for k, x in frames.items()}   # S 1-frame dicts
+        S = frames["depth"].shape[0]
+        sem_ids, scores = (self._block_semantics(
+            self._sem_prepass_frames(frames)) if self.semantics
+            else (None, None))
+        nvox = volumes.num[0].numel()
+        per_scene, nets = [], []
+        for s in range(S):
+            vol = SceneVolume(num=volumes.num[s], weights=volumes.weights[s],
+                              semkey=volumes.semkey[s],
+                              origin=volumes.origin[s],
+                              resolution=volumes.resolution[s],
+                              init_value=volumes.init_value)
+            depth, filtered, values, inputs = self._flat_frontend(
+                vol, {k: x[s:s + 1] for k, x in frames.items()},
+                None if sem_ids is None else sem_ids[s])
+            per_scene.append((values, filtered))
+            nets.append(inputs)
+        est = self.fusion_net({k: torch.cat([i[k] for i in nets])
+                               for k in nets[0]})
+        est = est.reshape(S, depth.numel(), -1)[..., :self.n_points]
+        parts = []
+        for s, (values, filtered) in enumerate(per_scene):
+            upd_values, upd_idx, upd_weights, ray_mask = \
+                self._volume_update_args(values, est[s:s + 1], filtered)
+            if isinstance(upd_idx, tuple):
+                lin, valid = upd_idx
+            else:
+                shape = tuple(volumes.num.shape[1:])
+                valid = geometry.valid_index_mask(upd_idx, shape)
+                lin = geometry._flatten_index(
+                    geometry.clamp_indices(upd_idx, shape), shape)
+            parts.append((upd_values, lin + s * nvox, valid, upd_weights,
+                          ray_mask))
+        upd_values, lin, valid, upd_weights, ray_mask = (
+            torch.cat(a) for a in zip(*parts))
+        integ.integrate_numw_lin(volumes.num, volumes.weights, upd_values,
+                                 lin, valid, upd_weights, ray_mask)
+        if self.semantics:
+            integ.integrate_semkey_lin(volumes.semkey, sem_ids.reshape(-1),
+                                       scores.reshape(-1), lin, valid,
+                                       ray_mask)
+        return volumes
+
+    def fuse_sequence_scenes(self, volumes: SceneVolume, frames
+                             ) -> SceneVolume:
+        """Fuse S stacked scenes' (S, T, ...) frame chunks: ``jax.vmap`` of
+        the JAX package's ``fuse_sequence_impl``. Row path: enter, stream
+        through :meth:`fuse_sequence_rows_scenes`, exit (new volumes);
+        flat path: one :meth:`step_fuse_scenes` a frame, in place."""
+        if not self.row_path:
+            frames = self._sem_prepass_frames(frames)
+            for i in range(frames["depth"].shape[1]):
+                volumes = self.step_fuse_scenes(
+                    volumes, {k: x[:, i:i + 1] for k, x in frames.items()})
+            return volumes
+        layout = rowvol.RowLayout.for_shape(tuple(volumes.num.shape[1:]))
+        rv = self._enter_rows_scenes(layout, volumes)
+        stream = self.fuse_sequence_rows_scenes(
+            layout, self._new_stream(layout, rv), frames)
+        return self._exit_rows_scenes(layout, stream.rv)
 
     def train_sequence_rows(self, layout, stream: RowStream, gt_shadow,
                             frames: Dict[str, torch.Tensor], reset_flags

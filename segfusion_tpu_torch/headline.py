@@ -49,11 +49,12 @@ def build_pipeline(cfg, device, seed: int = 0) -> Pipeline:
     return Pipeline(cfg, segmenter=seg, device=device, generator=g)
 
 
-def render_frames(n_frames: int, h: int, w: int, device):
-    """Depth over SyntheticScene(seed=0, half=2.2) from ``n_frames``
-    distinct poses of a circular trajectory, plus a gray image derived
-    from depth (``bench.py`` ``render_frames``); a (T, ...) frame dict."""
-    scene = SyntheticScene(seed=0, half=2.2)
+def render_frames(n_frames: int, h: int, w: int, device, scene=None):
+    """Depth over ``scene`` (default SyntheticScene(seed=0, half=2.2)) from
+    ``n_frames`` distinct poses of a circular trajectory, plus a gray
+    image derived from depth (``bench.py`` ``render_frames``); a (T, ...)
+    frame dict."""
+    scene = scene if scene is not None else SyntheticScene(seed=0, half=2.2)
     coarse, _ = scene.grid(0.04, 10.0, pad=2)
     f = 0.5 * w
     intr = torch.tensor([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]],

@@ -22,6 +22,16 @@ card and what the design does about it.
 
 ``layout`` is a ``rowvol.RowLayout``; ``ty`` the shadow y-tile height of
 ``rowvol.shadow_tiling`` (the dirty flags index (x, y-tile) tiles).
+
+The ``*_v`` entry points take S scenes' states stacked on a leading axis,
+``(S, rows, 128)``: the counterparts of the JAX package's ``custom_vmap``
+rules (``shadow_build.py:600-736``). Every kernel is uniform over x, and a
+scene's rows sit exactly where rows of x-planes ``s * X ..`` of one volume
+of ``X' = S * X`` would, so each launches its kernel (or plain version)
+once on ``layout._replace(X=S * X)``. A carry that arrives without the
+scene axis (one shadow or one mask for all scenes) is broadcast first, as
+the JAX rules' ``_bcast`` does. The kernels index with 64-bit element
+offsets, so a fold may pass 2^31 elements.
 """
 
 from __future__ import annotations
@@ -38,7 +48,9 @@ from . import _build
 __all__ = ["build_shadow", "build_shadow_dirty", "reconcile_slot",
            "reconcile_key", "build_shadow_plain", "build_shadow_dirty_plain",
            "reconcile_slot_plain", "reconcile_key_plain",
-           "shadow_from_canonical", "launch_counts", "reset_launch_counts"]
+           "shadow_from_canonical", "launch_counts", "reset_launch_counts",
+           "build_shadow_v", "build_shadow_dirty_v", "reconcile_slot_v",
+           "reconcile_key_v"]
 
 
 # -- plain versions -----------------------------------------------------------
@@ -257,6 +269,72 @@ def reconcile_key(key: torch.Tensor, layout) -> torch.Tensor:
            "reconcile_key_kernel")
     reconcile_key.launches += 1
     return out
+
+
+# -- scene-folded entry points -------------------------------------------------
+
+def _folded(layout, S: int):
+    return layout._replace(X=S * layout.X)
+
+
+def _bcast(a: torch.Tensor, ndim: int, S: int) -> torch.Tensor:
+    """``a`` with the scene axis: as it is where it has one (``ndim`` + 1
+    dims), else a contiguous copy for each of the S scenes."""
+    if a.dim() == ndim + 1:
+        return a
+    return a[None].expand((S,) + tuple(a.shape)).contiguous()
+
+
+def build_shadow_v(geo: torch.Tensor, layout, ty: int) -> torch.Tensor:
+    """(S, geo_rows, 128) slot states -> (S, shadow_rows, 128) shadows in
+    one launch."""
+    S = geo.shape[0]
+    out = build_shadow(geo.reshape(S * layout.geo_rows, 128),
+                       _folded(layout, S), ty)
+    return out.view(S, layout.shadow_rows, 128)
+
+
+def build_shadow_dirty_v(geo: torch.Tensor, prev_shadow: torch.Tensor,
+                         dirty: torch.Tensor, layout, ty: int
+                         ) -> torch.Tensor:
+    """:func:`build_shadow_dirty` over S scenes in one launch: ``geo``
+    (S, geo_rows, 128), ``prev_shadow`` (S, shadow_rows, 128) and ``dirty``
+    (S, X * NJ + 1), each of them or all but one without the scene axis
+    (then broadcast). The folded mask is each scene's first X * NJ flags,
+    concatenated, then one sentinel 0. A batched ``prev_shadow`` is
+    updated in place; returns the (S, shadow_rows, 128) shadows."""
+    batched = [t.shape[0] for t, nd in ((geo, 2), (prev_shadow, 2),
+                                        (dirty, 1)) if t.dim() == nd + 1]
+    if not batched:
+        raise ValueError("build_shadow_dirty_v: no operand has a scene axis")
+    S = batched[0]
+    nt = layout.X * (layout.Y // ty)
+    geo = _bcast(geo, 2, S)
+    prev_shadow = _bcast(prev_shadow, 2, S)
+    dirty = _bcast(dirty, 1, S)
+    flags = torch.cat([dirty[:, :nt].reshape(-1),
+                       torch.zeros(1, dtype=dirty.dtype, device=dirty.device)])
+    build_shadow_dirty(geo.reshape(S * layout.geo_rows, 128),
+                       prev_shadow.view(S * layout.shadow_rows, 128), flags,
+                       _folded(layout, S), ty)
+    return prev_shadow
+
+
+def reconcile_slot_v(geo: torch.Tensor, layout):
+    """(S, geo_rows, 128) -> canonical (num, w), each (S, X, Y, Z)."""
+    S = geo.shape[0]
+    num, w = reconcile_slot(geo.reshape(S * layout.geo_rows, 128),
+                            _folded(layout, S))
+    shape = (S, layout.X, layout.Y, layout.Z)
+    return num.view(shape), w.view(shape)
+
+
+def reconcile_key_v(key: torch.Tensor, layout) -> torch.Tensor:
+    """(S, key_rows, 128) -> canonical (S, X, Y, Z) packed keys."""
+    S = key.shape[0]
+    out = reconcile_key(key.reshape(S * layout.key_rows, 128),
+                        _folded(layout, S))
+    return out.view(S, layout.X, layout.Y, layout.Z)
 
 
 _WRAPPERS = (build_shadow_dirty, build_shadow, reconcile_slot, reconcile_key)

@@ -34,7 +34,10 @@ from .kernels import shadow_build as _sb
 __all__ = ["RowLayout", "RowVolume", "rows_from_volume", "volume_from_rows",
            "build_shadow", "build_shadow_dirty", "shadow_from_canonical",
            "corner_rows", "extract_rows", "integrate_rows", "pick_ty",
-           "shadow_tiling", "dirty_tile_mask"]
+           "shadow_tiling", "dirty_tile_mask", "rows_from_volumes",
+           "volumes_from_rows", "build_shadow_v", "build_shadow_dirty_v",
+           "corner_rows_scenes", "gather_words", "extract_words",
+           "row_updates", "scatter_updates"]
 
 # Integration ray-chunk target (rays per chunk), as in the JAX package:
 # the (M, 128) update rows are materialised, so very large frames stream
@@ -140,6 +143,30 @@ def volume_from_rows(geo, key, layout: RowLayout):
     return num, w, _sb.reconcile_key(key, layout)
 
 
+# S same-shape scenes stacked on a leading axis: every slot pass is
+# x-local, so S scenes are one volume of S * X x-planes (the JAX package's
+# vmap of these passes folds the same way)
+
+def rows_from_volumes(num, w, key, layout: RowLayout,
+                      geo_dtype=torch.float32):
+    """:func:`rows_from_volume` of (S, X, Y, Z) canonical tensors ->
+    (S, geo_rows, 128) geo and (S, key_rows, 128) key states."""
+    S = num.shape[0]
+    fold = (S * layout.X, layout.Y, layout.Z)
+    geo, key = rows_from_volume(num.reshape(fold), w.reshape(fold),
+                                key.reshape(fold),
+                                layout._replace(X=S * layout.X), geo_dtype)
+    return (geo.view(S, layout.geo_rows, 128),
+            key.view(S, layout.key_rows, 128))
+
+
+def volumes_from_rows(geo, key, layout: RowLayout):
+    """Reconcile (S, rows, 128) slot states to (S, X, Y, Z) canonical
+    (num, w, key): one launch of each reconcile kernel."""
+    num, w = _sb.reconcile_slot_v(geo, layout)
+    return num, w, _sb.reconcile_key_v(key, layout)
+
+
 # -- gather shadow ------------------------------------------------------------
 
 def pick_ty(Y: int, max_ty: Optional[int] = None) -> int:
@@ -178,6 +205,19 @@ def build_shadow_dirty(geo, prev_shadow, dirty, layout: RowLayout
     it."""
     return _sb.build_shadow_dirty(geo, prev_shadow, dirty, layout,
                                   shadow_tiling(layout)[0])
+
+
+def build_shadow_v(geo, layout: RowLayout) -> torch.Tensor:
+    """:func:`build_shadow` of (S, geo_rows, 128) states, one launch."""
+    return _sb.build_shadow_v(geo, layout, shadow_tiling(layout)[0])
+
+
+def build_shadow_dirty_v(geo, prev_shadow, dirty, layout: RowLayout
+                         ) -> torch.Tensor:
+    """:func:`build_shadow_dirty` of S scenes, one launch (``prev_shadow``
+    (S, shadow_rows, 128) updated in place, ``dirty`` (S, X * NJ + 1))."""
+    return _sb.build_shadow_dirty_v(geo, prev_shadow, dirty, layout,
+                                    shadow_tiling(layout)[0])
 
 
 def dirty_tile_mask(points_v: torch.Tensor, layout: RowLayout
@@ -290,6 +330,24 @@ def corner_rows(points_v: torch.Tensor, layout: RowLayout) -> CornerRows:
         wz0=wz0.float(), wz1=wz1.float(), vz0=vz0, vz1=vz1)
 
 
+def corner_rows_scenes(points_v: torch.Tensor, layout: RowLayout
+                       ) -> CornerRows:
+    """:func:`corner_rows` of S scenes' samples, ``points_v`` (S, n, p, 3)
+    in each scene's own voxel space, folded into one volume of S * X
+    x-planes: rays scene-major, (2, S * n, p) / (S * n, p). Each scene's
+    bounds (the x clamp and the validity masks) apply before its row
+    offset is added, so a sample past scene s's last x-plane stays masked
+    and its clamped rows stay in scene s."""
+    S, n, p, _ = points_v.shape
+    cr = corner_rows(points_v, layout)
+    s = torch.arange(S, dtype=torch.int32, device=points_v.device)
+    sg_rows = cr.sg_rows + (s * layout.geo_rows)[None, :, None, None]
+    k_rows = cr.k_rows + (s * layout.key_rows)[None, :, None, None]
+    cr = cr._replace(sg_rows=sg_rows, k_rows=k_rows)
+    return CornerRows(*[a.reshape((2, S * n, p) if a.dim() == 4
+                                  else (S * n, p)) for a in cr])
+
+
 # -- extraction ---------------------------------------------------------------
 
 _COMP_LANES = (0, 32, 64, 96)
@@ -304,12 +362,34 @@ def extract_rows(shadow: torch.Tensor, cr: CornerRows, init_value: float,
     component matches, so gathering that lane is bit-identical. (The JAX
     ray chunking bounded its (2m, 128) row gather; the port's (2m, 4)
     gather needs none.)"""
+    return extract_words(gather_words(shadow, cr.k_rows, cr.ksl), cr,
+                         init_value, fill_value)
+
+
+def gather_words(shadow: torch.Tensor, k_rows: torch.Tensor,
+                 ksl: torch.Tensor, row_offset: int = 0, owned=None
+                 ) -> torch.Tensor:
+    """The (2 n p, 4) shadow words of each (x-corner, ray, sample): the 4
+    corner components of its slot (``CornerRows.k_rows`` / ``ksl``).
+    ``shadow`` may hold only the rows from ``row_offset`` on (an x-slab);
+    then ``owned`` (2 n p,) bool says which corners lie in it, and the
+    others read 0."""
+    slot = ksl.reshape(-1).long()
+    rows = k_rows.reshape(-1).long() - row_offset
+    if owned is not None:
+        rows = torch.where(owned, rows, 0)
+    base = rows * 128 + torch.cat([slot, slot])
+    lanes = torch.tensor(_COMP_LANES, dtype=torch.long, device=base.device)
+    q = shadow.reshape(-1)[base[:, None] + lanes]
+    return q if owned is None else torch.where(owned[:, None], q, 0)
+
+
+def extract_words(q: torch.Tensor, cr: CornerRows, init_value: float,
+                  fill_value: float):
+    """The trilinear (fusion_values, fusion_weights) of
+    :func:`extract_rows` from the gathered words ``q``."""
     n, p = cr.ksl.shape
     m = n * p
-    slot = cr.ksl.reshape(-1).long()
-    base = cr.k_rows.reshape(-1).long() * 128 + torch.cat([slot, slot])
-    lanes = torch.tensor(_COMP_LANES, dtype=torch.long, device=base.device)
-    q = shadow.reshape(-1)[base[:, None] + lanes]            # (2m, 4)
     qA0, qA1, qB0, qB1 = q.unbind(1)
 
     dz0 = cr.dz0.reshape(-1)
@@ -375,6 +455,28 @@ def integrate_rows(geo, key, cr: CornerRows, values, sem_key, ray_mask,
     or None; ``ray_mask`` (n,) bool or None. ``do_sem`` (a host bool, the
     JAX package's lax.cond gate) skips the key scatter when False; the geo
     scatter always runs. Returns ``(geo, key)``."""
+    scatter_updates(geo, key, row_updates(cr, values, sem_key, ray_mask,
+                                          n_tail, geo.dtype, do_sem))
+    return geo, key
+
+
+class RowUpdates(NamedTuple):
+    """The placed-before-scatter updates of :func:`integrate_rows`: geo
+    rows, z-slots and (M, 8) values; the key part None when the key
+    scatter is skipped."""
+    rows: torch.Tensor
+    sgs: torch.Tensor
+    vals8: torch.Tensor
+    k_rows: Optional[torch.Tensor]
+    ksl: Optional[torch.Tensor]
+    kvals: Optional[torch.Tensor]
+    n_tail: int
+
+
+def row_updates(cr: CornerRows, values, sem_key, ray_mask, n_tail: int,
+                geo_dtype, do_sem: Optional[bool] = None) -> RowUpdates:
+    """The updates :func:`integrate_rows` scatters, one per (x-corner,
+    ray, tail sample), in its order."""
     t = n_tail
     n = cr.ksl.shape[0]
 
@@ -410,7 +512,7 @@ def integrate_rows(geo, key, cr: CornerRows, values, sem_key, ray_mask,
 
     # a 16-bit state rounds the (f32) update values to its dtype before
     # the placement (EARLY_CAST: bit-identical to rounding after it)
-    vals8 = torch.cat([corner_vals8(0), corner_vals8(1)], 0).to(geo.dtype)
+    vals8 = torch.cat([corner_vals8(0), corner_vals8(1)], 0).to(geo_dtype)
     rows = cr.sg_rows[:, :, :t].reshape(-1).long()
     sgs = both(flat(cr.sgs))
 
@@ -432,16 +534,22 @@ def integrate_rows(geo, key, cr: CornerRows, values, sem_key, ray_mask,
                 -1)                                              # (m, 4)
 
         kvals = torch.cat([corner_kvals(0), corner_kvals(1)], 0)
-        k_rows = cr.k_rows[:, :, :t].reshape(-1).long()
-        ksl = both(flat(cr.ksl))
+        return RowUpdates(rows, sgs, vals8,
+                          cr.k_rows[:, :, :t].reshape(-1).long(),
+                          both(flat(cr.ksl)), kvals, t)
+    return RowUpdates(rows, sgs, vals8, None, None, None, t)
 
-    M = rows.shape[0]
-    kch = _nchunks(M, _INTEGRATE_CHUNK * 2 * t)
+
+def scatter_updates(geo, key, u: RowUpdates) -> None:
+    """Scatter :func:`row_updates` into the slot state, in place: the geo
+    scatter-add, and the key scatter-max where ``u`` has a key part, in
+    ray chunks of the integration target."""
+    M = u.rows.shape[0]
+    kch = _nchunks(M, _INTEGRATE_CHUNK * 2 * u.n_tail) if M else 1
     bounds = [(i * M // kch, (i + 1) * M // kch) for i in range(kch)]
     for a, b in bounds:
-        geo.index_add_(0, rows[a:b], _place(sgs[a:b], vals8[a:b], 16))
-    if run_sem:
+        geo.index_add_(0, u.rows[a:b], _place(u.sgs[a:b], u.vals8[a:b], 16))
+    if u.kvals is not None:
         for a, b in bounds:
-            key.index_reduce_(0, k_rows[a:b],
-                              _place(ksl[a:b], kvals[a:b], 32), "amax")
-    return geo, key
+            key.index_reduce_(0, u.k_rows[a:b],
+                              _place(u.ksl[a:b], u.kvals[a:b], 32), "amax")

@@ -40,6 +40,7 @@ from .device import resolve_device
 from .models import seeded_init
 from .models.fusionnet import build_fusion_net
 from .ops import rowvol
+from .parallel import multihost
 from .utils.checkpoints import load_checkpoint
 from .utils.convert import (fusionnet_from_checkpoint, load_flax,
                             segmenter_from_checkpoint, to_flax)
@@ -81,6 +82,9 @@ def train_fusion(config, device="cuda", comment: str = ""):
     use_sequence = bool(opt_cfg.get("use_sequence", True))
     seed = int(config.SETTINGS.seed or 0)
     draws = np.random.RandomState(seed)       # random resets
+
+    # multi-process scene sharding, off by default (parallel/multihost.py)
+    multihost.initialize(config)
 
     workspace = get_workspace(config)
     workspace.log(f"comment: {comment}", "train")

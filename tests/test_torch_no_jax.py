@@ -41,7 +41,10 @@ _PROBE = textwrap.dedent("""
     for new in ("models.layers", "train_segmentation", "test_segmentation",
                 "seg_quality_demo", "quality_demo", "utils.torch_import",
                 "utils.png", "ops.tsdf_fusion", "core.tsdf_volume",
-                "ops.distance_transform", "ops.tvl1"):
+                "ops.distance_transform", "ops.tvl1", "parallel",
+                "parallel.mesh", "parallel.scene_parallel",
+                "parallel.shard_kernels", "parallel.spatial",
+                "parallel.multihost", "parallel.multihost_worker"):
         assert "segfusion_tpu_torch." + new in names, new
     leaked = sorted(m for m in sys.modules if refused(m))
     assert not leaked, leaked
@@ -55,8 +58,8 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     # chip_smoke + the package's modules (ops, kernels, models, core,
-    # utils, probes, the CLIs, ...)
-    assert int(proc.stdout.split()[-1]) >= 58
+    # utils, probes, the CLIs, parallel, ...)
+    assert int(proc.stdout.split()[-1]) >= 65
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
