@@ -43,8 +43,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 4. the headline configuration through ``Pipeline.fuse_sequence_rows``:
    AdapNet++ stage 2 + FusionNet v3 (growth factor 6, semantics), 448^3
    at 1 cm, 256x256 frames, frame_block 4, sem_integrate_every 8, bf16
-   geo, nets in bf16, seeded random weights; 2 chunks of 32 frames, then
-   the exit reconcile;
+   geo, nets in bf16 (FusionNet through the folded executor), seeded
+   random weights; 2 chunks of 32 frames, then the exit reconcile;
 4b. the evaluation of that fused 448^3 volume through the port's Database
    (gt: the same synthetic room sampled at 1 cm): ``filter``,
    ``filter_semantics`` (one K5 launch), ``evaluate``,
@@ -60,7 +60,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    frames instead of 60);
 9. training at full width (``bench.py`` ``bench_train``): FusionNet v3
    (growth factor 6, the semantic head, gt labels) in bf16 on float32
-   master weights, 448^3 at 1 cm with the gt from the synthetic room's
+   master weights (the matmul-form training forward), 448^3 at 1 cm
+   with the gt from the synthetic room's
    SDF, 256x256 frames, chunks of 8 through ``train_sequence_rows`` with
    the dirty carry, one rmsprop update a chunk (lr 1e-5, momentum 0.9,
    weight decay 0.01, eps 1e-9, poly_lr, global-norm clipping): a warm-up
@@ -126,11 +127,30 @@ Phases, each of which raises (exit code 1, no result line) on failure:
       bit-exact against the unsharded kernels;
    e. ``SpatialShardedFusion`` ``step`` and ``fuse_sequence`` over 2
       slabs against the unsharded pipeline, row path and scalar;
-   f. ``parallel.multihost_worker`` as two processes on the card (gloo).
+   f. ``parallel.multihost_worker`` as two processes on the card (gloo);
+16. the folded FusionNet v3 executor (``models/fusionnet_fast``, which a
+   bf16 v3 pipeline runs by default, as the JAX package's does) and the
+   host tools:
+   a. the executor against the eager module at full width (gf 6 with the
+      semantic head, a block of 4 x 256x256): every ``fused_conv3x3`` x
+      ``fused_vortex`` form in f32 within rtol 2e-4 / atol 2e-5, in bf16
+      max and mean |d| from the f32 forward beside the eager bf16
+      module's; ms and kernels per forward; card against CPU at gf 2;
+   b. the headline (phase 4) and multi512 (15b) with the executor and
+      with ``fused_net: off``, in turns: frames/s;
+   c. phase 9's training with the matmul-form training forward and with
+      ``fused_net_train: off``: training frames/s, peak memory; a small
+      bf16 training stream card against CPU;
+   d. a reference-named v3 ``.pth.tar`` through ``convert_checkpoint``
+      (and ``python -m``), then ``test_fusion`` from it (K1/K3/K4/K5);
+   e. ``python -m segfusion_tpu_torch.preprocess.{scale,fuse,simplify}``
+      on one closed mesh (fuse at the tool's defaults, on the card);
+   f. ``trace`` around a headline block, ``nan_guard`` on a NaN.
 
 Launch counts are reset just before each main-path run (3c's probe
-mains, 4, 4b, 5, 8, 9, the trainer of 10, 11c, 14's runs and 15b, c and
-e) and read just after; the kernel checks' launches are not counted.
+mains, 4, 4b, 5, 8, 9, the trainer of 10, 11c, 14's runs, 15b, c and e,
+and 16b, c and d) and read just after; the kernel checks' launches are
+not counted.
 
 Then one JSON line of per-kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result where
@@ -164,7 +184,9 @@ from segfusion_tpu_torch.headline import (HEADLINE_SHAPE, build_pipeline,
                                           render_frames)
 from segfusion_tpu_torch.models import seeded_init
 from segfusion_tpu_torch.models.adapnet import SegmenterAdapter
+from segfusion_tpu_torch.models import fusionnet_fast as ff
 from segfusion_tpu_torch.models.fusionnet import build_fusion_net
+from segfusion_tpu_torch.convert_checkpoint import convert_checkpoint
 from segfusion_tpu_torch.ops import distance_transform as cdt
 from segfusion_tpu_torch.ops import geometry, rowvol
 from segfusion_tpu_torch.ops import tvl1 as ctvl1
@@ -192,7 +214,14 @@ from segfusion_tpu_torch.probes import (dynamic_gather, pallas_caps,
                                         pallas_caps2, pallas_caps3,
                                         random_access, shadow_debug,
                                         shadow_variants)
-from segfusion_tpu_torch.utils.mesh import MCUBES_SOURCE
+from segfusion_tpu_torch.utils import torch_convert
+from segfusion_tpu_torch.utils.convert import fusionnet_from_checkpoint
+from segfusion_tpu_torch.utils.mesh import MCUBES_SOURCE, marching_cubes
+from segfusion_tpu_torch.utils.meshio import read_off, write_off
+from segfusion_tpu_torch.utils.rasterize import RASTERIZE_SOURCE
+from segfusion_tpu_torch.utils.simplify import (SIMPLIFY_SOURCE,
+                                                simplify_quadric)
+from segfusion_tpu_torch.utils.tracing import nan_guard, trace
 
 PALLAS = "segfusion_tpu/ops/pallas/shadow_build.py"
 SOURCE = "segfusion_tpu_torch/csrc/shadow_build.cu"
@@ -1385,16 +1414,17 @@ def with_labels(frames):
     return dict(frames, semantic_gt=sem)
 
 
-def trainer(cfg, dev, n: int, seed: int = 0):
+def trainer(cfg, dev, n: int, seed: int = 0, gt=None):
     """(pipeline, layout, stream, gt shadow, optimizer) over an empty n^3
-    headline volume; the net seeded on the host, so every device starts
-    from the same weights."""
+    headline volume (``gt``: the room's n^3 gt, sampled here when None);
+    the net seeded on the host, so every device starts from the same
+    weights."""
     net = seeded_init(build_fusion_net(cfg.FUSION_MODEL),
                       torch.Generator().manual_seed(seed))
     pipe = Pipeline(cfg, fusion_net=net, device=dev, train=True)
     volume = headline_volume(dev, (n, n, n))
     layout = rowvol.RowLayout.for_shape((n, n, n))
-    gt = room_gt(n, dev)
+    gt = room_gt(n, dev) if gt is None else gt
     gt_shadow = pipe._gt_shadow(layout, gt)
     stream = pipe._new_stream(layout, pipe._enter_rows(layout, volume))
     del gt, volume        # the packed and entered forms stay
@@ -2960,6 +2990,534 @@ def phase15(dev):
     return folded, counts
 
 
+# -- phase 16: the folded FusionNet executor and the host tools --------------
+
+EXECUTOR_FORMS = (("dots9", False), ("im2col", False), ("dots9", True),
+                  ("im2col", True))
+
+
+def bn_perturbed(net, seed: int):
+    """``net`` with random BatchNorm scales, biases and running
+    statistics drawn on the host from ``seed``, so a fold has work."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.weight.copy_(0.8 + 0.4 * torch.rand(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    return net
+
+
+def net_inputs(b: int, h: int, w: int, dev, seed: int, n_points: int = 9):
+    """FusionNet's NHWC input dict (with the semantic frame) drawn on the
+    host from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    d = {"tsdf_values": 0.05 * torch.randn(b, h, w, n_points, generator=g),
+         "tsdf_weights": 3.0 * torch.rand(b, h, w, n_points, generator=g),
+         "tsdf_frame": 0.5 + 2.5 * torch.rand(b, h, w, 1, generator=g),
+         "semantic_frame": torch.rand(b, h, w, 1, generator=g)}
+    return {k: v.to(dev) for k, v in d.items()}
+
+
+def kernels_per_call(fn) -> int:
+    """CUDA kernels one call of ``fn`` runs, from torch.profiler's device
+    events (the runtime's launch calls where the trace has none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    if device:
+        return device
+    return sum(1 for e in events if "LaunchKernel" in e.name)
+
+
+def executor_forms(dev):
+    """Phase 16a: the folded executor (``models/fusionnet_fast``) against
+    the eager module at full width (v3 gf 6 with the semantic head, a
+    block of 4 frames of 256x256, random BatchNorm statistics): in f32
+    (TF32 off) every form (``fused_conv3x3`` dots9 / im2col x
+    ``fused_vortex`` plain / packed) within tests/test_fastnet.py's rtol
+    2e-4 / atol 2e-5; in bf16 max and mean |d| from the f32 eager
+    forward, the executor's within tests/test_fastnet.py's bf16 bound
+    (max 0.08, mean 0.02), the eager bf16 module's beside it; ms and
+    kernels per forward of each; then card against CPU on phase 6's
+    small width (gf 2, 32x32): f32 within rtol 2e-4 / atol 2e-5, bf16
+    max |d| within 8e-3 and mean within 1e-3 (the bound
+    tests/test_torch_fastnet.py holds two bf16 roundings of the executor
+    to)."""
+    cfg = headline_config()
+    net = bn_perturbed(seeded_init(build_fusion_net(cfg.FUSION_MODEL),
+                                   torch.Generator().manual_seed(11)), 12)
+    net = net.to(dev).eval()
+    inputs = net_inputs(4, 256, 256, dev, 13)
+    eager16 = copy.deepcopy(net).to(torch.bfloat16)
+    rows = []
+    with torch.no_grad():
+        ref = net(inputs).reshape(4, 256 * 256, -1)
+        rows.append(("eager f32", 0.0, 0.0, cuda_ms(lambda: net(inputs), 5),
+                     kernels_per_call(lambda: net(inputs))))
+        e16 = eager16(inputs).reshape(ref.shape)
+        rows.append(("eager bf16", float((e16 - ref).abs().max()),
+                     float((e16 - ref).abs().mean()),
+                     cuda_ms(lambda: eager16(inputs), 5),
+                     kernels_per_call(lambda: eager16(inputs))))
+        bad = []
+        for mode, pack in EXECUTOR_FORMS:
+            for dt in (torch.float32, torch.bfloat16):
+                fast = ff.FastV3(net, dtype=dt, conv3x3=mode,
+                                 pack_vortex=pack)
+                got = fast(inputs)
+                d = (got - ref).abs()
+                name = (f"executor {'f32' if dt == torch.float32 else 'bf16'}"
+                        f" {mode} {'packed' if pack else 'plain'}")
+                rows.append((name, float(d.max()), float(d.mean()),
+                             cuda_ms(lambda: fast(inputs), 5),
+                             kernels_per_call(lambda: fast(inputs))))
+                ok = (torch.allclose(got, ref, rtol=2e-4, atol=2e-5)
+                      if dt == torch.float32
+                      else float(d.max()) <= 0.08 and float(d.mean()) <= 0.02)
+                if not ok or not bool(torch.isfinite(got).all()):
+                    bad.append(name)
+    log("16a FusionNet v3 gf 6 + semantic head, 4 x 256x256, forward "
+        "(against the f32 eager module, TF32 off; ms from CUDA events, "
+        "5 calls; kernels per forward from torch.profiler):")
+    for name, mx, mean, ms, k in rows:
+        log(f"  {name}: max |d| {mx:.3g}, mean |d| {mean:.3g}, "
+            f"{ms:.3f} ms, {k} kernels")
+    if bad:
+        raise RuntimeError(f"16a: the executor disagrees with the eager "
+                           f"module: {bad}")
+    # card against CPU at phase 6's width
+    small = headline_config(32, 32)
+    small.FUSION_MODEL.growth_factor = 2
+    cpu_net = bn_perturbed(seeded_init(build_fusion_net(small.FUSION_MODEL),
+                                       torch.Generator().manual_seed(14)),
+                           15).eval()
+    card_net = copy.deepcopy(cpu_net).to(dev)
+    errs = {}
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            for mode, pack in EXECUTOR_FORMS:
+                want = ff.FastV3(cpu_net, dtype=dt, conv3x3=mode,
+                                 pack_vortex=pack)(net_inputs(2, 32, 32,
+                                                              "cpu", 16))
+                got = ff.FastV3(card_net, dtype=dt, conv3x3=mode,
+                                pack_vortex=pack)(net_inputs(2, 32, 32, dev,
+                                                             16)).cpu()
+                d = (got - want).abs()
+                errs[(str(dt)[6:], mode, pack)] = (float(d.max()),
+                                                   float(d.mean()))
+                ok = (torch.allclose(got, want, rtol=2e-4, atol=2e-5)
+                      if dt == torch.float32
+                      else float(d.max()) <= 8e-3 and float(d.mean()) <= 1e-3)
+                if not ok:
+                    bad.append((str(dt), mode, pack))
+    log(f"  card against CPU, gf 2, 2 x 32x32 (max, mean |d|): {errs}")
+    if bad:
+        raise RuntimeError(f"16a: card and CPU executors disagree: {bad}")
+
+
+def in_turns(runs, turns: int = 2):
+    """Each ``runs`` callable ``turns`` times, alternating; name -> the
+    list of what each returned."""
+    out = {name: [] for name in runs}
+    for _ in range(turns):
+        for name, fn in runs.items():
+            out[name].append(fn())
+    return out
+
+
+def executor_streams(dev):
+    """Phase 16b: the headline (phase 4's configuration, 2 chunks of 32)
+    and multi512 (15b's) with the executor (``fused_net`` by default on
+    a bf16 v3) and with ``fused_net: off`` (the eager module cast to
+    bf16) in one process, in turns after a warm-up each: frames/s, and
+    the two headline volumes held together (the nets round differently,
+    so they are held only to the recurrence's scale: observed voxels and
+    keys exact in share, the tsdf where both observe within 0.05 on 99%
+    of them). Returns the launch counts of the timed runs."""
+    cfg = headline_config()
+    pipe = build_pipeline(cfg, dev)
+    off_cfg = copy.deepcopy(cfg)
+    off_cfg.SETTINGS.fused_net = "off"
+    off = Pipeline(off_cfg, segmenter=pipe.segmenter,
+                   fusion_net=copy.deepcopy(pipe.fusion_net), device=dev)
+    if not pipe.fused_net or off.fused_net:
+        raise RuntimeError("16b: the executor settings were not read")
+    frames = render_frames(32, 256, 256, dev)
+    volume = headline_volume(dev, HEADLINE_SHAPE)
+    total = {k: 0 for k in read_counts()}
+    outs = {}
+
+    def stream(p, name):
+        def run():
+            out, counts, t_fuse, _ = run_stream(p, volume, [frames, frames])
+            for k in total:
+                total[k] += counts[k]
+            outs[name] = out
+            return 64 / t_fuse
+        return run
+
+    for p in (pipe, off):
+        run_stream(p, volume, [frames], warm=frames)
+    fps = in_turns({"executor": stream(pipe, "executor"),
+                    "eager": stream(off, "eager")})
+    a, b = outs["executor"], outs["eager"]
+    both = (a.weights > 0.05) & (b.weights > 0.05)
+    dt = (a.tsdf[both] - b.tsdf[both]).abs()
+    share = float((dt <= 0.05).float().mean())
+    log(f"16b headline frames/s, in turns: executor {fps['executor']}, "
+        f"fused_net off {fps['eager']}; volumes: {int(both.sum())} voxels "
+        f"observed by both, tsdf max |d| {float(dt.max()):.3g}, within "
+        f"0.05 on {share:.4f}; card {card_line()}")
+    for out, name in ((a, "executor"), (b, "eager")):
+        check_volume(out, f"16b headline volume ({name})")
+    if share < 0.99:
+        raise RuntimeError("16b: the executor's and the eager module's "
+                           "headline volumes disagree")
+    del outs, a, b, volume, off, pipe, frames
+    torch.cuda.empty_cache()
+    mcfg = multi_config(512, 512)
+    pipe = build_pipeline(mcfg, dev)
+    off_cfg = copy.deepcopy(mcfg)
+    off_cfg.SETTINGS.fused_net = "off"
+    off = Pipeline(off_cfg, segmenter=pipe.segmenter,
+                   fusion_net=copy.deepcopy(pipe.fusion_net), device=dev)
+    frames = multi_frames(2, 8, 512, 512, dev, reps=2)
+    n = frames["depth"].shape[0] * frames["depth"].shape[1]
+
+    def multi(p):
+        runner = SceneParallelFusion(p)
+
+        def run():
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vols = runner.run_sequences(multi_volumes(2, MULTI_SHAPE, dev),
+                                        frames)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = read_counts()
+            for k in total:
+                total[k] += counts[k]
+            del vols
+            return n / dt
+        return run
+
+    runs = {"executor": multi(pipe), "eager": multi(off)}
+    for fn in runs.values():
+        fn()                                            # warm-up
+    fps = in_turns(runs)
+    log(f"16b multi512 aggregate frames/s, in turns: executor "
+        f"{fps['executor']}, fused_net off {fps['eager']}")
+    return total
+
+
+def bf16_train_chunk(cfg, dev, frames, seed: int = 3):
+    """One chunk of 4 training frames (the configured compute dtype) over
+    an empty 64^3 volume: (loss, gradients, running statistics) on the
+    host."""
+    pipe, layout, stream, gt_shadow, _ = trainer(cfg, dev, 64, seed=seed)
+    loss, _ = pipe.train_sequence_rows(layout, stream, gt_shadow,
+                                       {k: v.to(dev) for k, v in
+                                        frames.items()}, [False] * 4)
+    grads = torch.cat([p.grad.detach().reshape(-1).cpu()
+                       for p in pipe.fusion_net.parameters()])
+    return float(loss), grads, running_stats(pipe.fusion_net).cpu()
+
+
+def executor_training(dev, n: int = 448, hw: int = 256):
+    """Phase 16c: phase 9's training (448^3, 256x256, chunks of 8,
+    rmsprop) with the matmul-form training forward (``fused_net_train``
+    by default on bf16 v3) and with ``fused_net_train: off``: a warm-up
+    chunk and 2 timed chunks each, training frames/s and peak memory;
+    then a small bf16 stream (phase 10's 64^3 / 32x32 / gf 2, dropout
+    0, one chunk of 4) card against CPU, both on the matmul form: the
+    loss within rtol 1e-2; the gradients and the running statistics no
+    further apart (max |d|) than twice the CPU's bf16 run is from its f32
+    run (two bf16 roundings of one computation; at batch 1 BatchNorm
+    amplifies a one-ulp flip in a nearly constant channel). Returns the
+    launch counts."""
+    total = {k: 0 for k in read_counts()}
+    gt = room_gt(n, dev)
+    for setting in ("auto", "off"):
+        cfg = train_config(hw, hw)
+        cfg.SETTINGS.fused_net_train = setting
+        accum = int(cfg.TRAINING.optimization.accumulation_steps)
+        pipe, layout, stream, gt_shadow, opt = trainer(cfg, dev, n, gt=gt)
+        if pipe.fused_net_train != (setting == "auto"):
+            raise RuntimeError("16c: fused_net_train was not read")
+        frames = with_labels(render_frames(accum, hw, hw, dev))
+        resets = [False] * accum
+        loss, stream = train_chunk(pipe, layout, stream, gt_shadow, opt,
+                                   frames, resets)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(2):
+            loss, stream = train_chunk(pipe, layout, stream, gt_shadow, opt,
+                                       frames, resets)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        for k in total:
+            total[k] += counts[k]
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        log(f"16c training, fused_net_train {setting} "
+            f"({'matmul form' if pipe.fused_net_train else 'eager module'}"
+            f"): {2 * accum} frames in {dt:.3f} s = {2 * accum / dt:.2f} "
+            f"training frames/s; peak {peak:.2f} GiB; losses {losses}")
+        if not all(np.isfinite(losses)):
+            raise RuntimeError(f"16c: non-finite training loss ({setting})")
+        del pipe, stream, gt_shadow, opt, frames
+        torch.cuda.empty_cache()
+    del gt
+    cfg = small_train_config("sgd")
+    cfg.SETTINGS.fused_net_train = "on"
+    frames = with_labels(render_frames(4, 32, 32, "cpu"))
+    l32, g32, s32 = bf16_train_chunk(cfg, "cpu", frames)
+    cfg.FUSION_MODEL.compute_dtype = "bfloat16"
+    l_ref, g_ref, s_ref = bf16_train_chunk(cfg, "cpu", frames)
+    loss, g, st = bf16_train_chunk(cfg, dev, frames)
+    errs = {"loss": (loss, l_ref, l32),
+            "grad": float((g - g_ref).abs().max()),
+            "grad_bf16_vs_f32_cpu": float((g_ref - g32).abs().max()),
+            "grad_largest": float(g32.abs().max()),
+            "stats": float((st - s_ref).abs().max()),
+            "stats_bf16_vs_f32_cpu": float((s_ref - s32).abs().max())}
+    log(f"  small bf16 training stream, card against CPU (matmul form; "
+        f"the CPU's bf16 against its f32 for scale): {errs}")
+    if not (np.isclose(loss, l_ref, rtol=1e-2)
+            and errs["grad"] <= 2 * errs["grad_bf16_vs_f32_cpu"]
+            and errs["stats"] <= 2 * errs["stats_bf16_vs_f32_cpu"]):
+        raise RuntimeError("16c: card and CPU bf16 training disagree")
+    return total
+
+
+def reference_fusion_checkpoint(fm, path: str, seed: int, dev):
+    """A reference-style FusionNet ``.pth.tar`` for the FUSION_MODEL
+    section ``fm``: its convolutions and BatchNorms in execution order
+    under the names ``module.layer<i>``, random values, saved from the
+    card; returns the source net."""
+    net = bn_perturbed(seeded_init(build_fusion_net(fm),
+                                   torch.Generator().manual_seed(seed)),
+                       seed + 1)
+    state = {}
+    for i, (_, kind, layer) in enumerate(
+            torch_convert._ordered_port_layers(net, fm)):
+        attrs = (("weight", "bias") if kind == "conv" else
+                 ("weight", "bias", "running_mean", "running_var"))
+        for attr in attrs:
+            state[f"module.layer{i}.{attr}"] = getattr(layer,
+                                                       attr).detach().to(dev)
+    torch.save({"model_state": state, "epoch": 3}, path)
+    return net
+
+
+def converted_checkpoint(dev):
+    """Phase 16d: a reference-named v3 ``.pth.tar`` (gf 6, the semantic
+    head) through ``convert_checkpoint`` (the function, then ``python -m
+    segfusion_tpu_torch.convert_checkpoint`` with ``--config`` where
+    PyYAML is installed, else its refusal), the written checkpoint equal
+    to the source net, then ``test_fusion`` from it on
+    synthetic_tpu_demo_joint's configuration. Returns the launch
+    counts."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_convert_") as path:
+        cfg = demo_joint_config(os.path.join(path, "test"))
+        src = os.path.join(path, "best.pth.tar")
+        ckpt = os.path.join(path, "fusion_best.ckpt")
+        net = reference_fusion_checkpoint(cfg.FUSION_MODEL, src, 21, dev)
+        t0 = time.perf_counter()
+        convert_checkpoint("fusion", src, ckpt, cfg.FUSION_MODEL,
+                           strip_prefix="module")
+        t_convert = time.perf_counter() - t0
+        loaded = fusionnet_from_checkpoint(ckpt, cfg.FUSION_MODEL)
+        same = all(torch.equal(a, b) for a, b in zip(
+            loaded.state_dict().values(), net.state_dict().values()))
+        yml = os.path.join(path, "fusion.yaml")
+        with open(yml, "w") as f:
+            f.write("FUSION_MODEL:\n  name: v3\n  n_points: 9\n"
+                    "  n_tail_points: 7\n  growth_factor: 6\n"
+                    "  use_semantics: true\n  output_scale: 1.0\n")
+        cli = subprocess.run(
+            [sys.executable, "-m", "segfusion_tpu_torch.convert_checkpoint",
+             "--type", "fusion", "--config", yml, "--in", src, "--out",
+             os.path.join(path, "cli.ckpt"), "--strip-prefix", "module"],
+            capture_output=True, text=True, timeout=300)
+        try:
+            import yaml  # noqa: F401
+            has_yaml = True
+        except ImportError:
+            has_yaml = False
+        if has_yaml:
+            cli_ok = cli.returncode == 0 and open(
+                os.path.join(path, "cli.ckpt"), "rb").read() == open(
+                    ckpt, "rb").read()
+        else:
+            cli_ok = cli.returncode != 0 and "yaml" in cli.stderr
+        cfg.TESTING.fusion_model_path = ckpt
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = entry.test_fusion(cfg, dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    log(f"16d convert_checkpoint (v3 gf 6 + semantic head, "
+        f"{len(torch_convert._ordered_port_layers(net, cfg.FUSION_MODEL))} "
+        f"layers): {t_convert:.3f} s, equal to the source net: {same}; "
+        f"python -m with --config (PyYAML "
+        f"{'installed' if has_yaml else 'missing'}): "
+        f"{'as expected' if cli_ok else cli.stderr[-400:]}; test_fusion "
+        f"from it: {time.perf_counter() - t0:.3f} s {json.dumps(results)}; "
+        f"launches {counts}")
+    bad = [k for k, v in results.items() if not np.isfinite(v)]
+    if not same or not cli_ok or bad or len(results) != 9:
+        raise RuntimeError("16d: the converted checkpoint is wrong or "
+                           "test_fusion from it failed")
+    require(counts, ["median_filter3d", "build_shadow_dirty",
+                     "reconcile_slot", "reconcile_key"], "16d test_fusion")
+    return counts
+
+
+def watertight_share(faces: np.ndarray) -> float:
+    """The share of edges that exactly two faces share."""
+    edges = np.sort(np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
+                                    faces[:, [2, 0]]]), axis=1)
+    _, counts = np.unique(edges, axis=0, return_counts=True)
+    return float((counts == 2).mean())
+
+
+def preprocessing(dev):
+    """Phase 16e: one closed mesh (a sphere of radius 1.3 at (2, -1, 0.5),
+    marching cubes of its SDF on 48^3) through ``python -m
+    segfusion_tpu_torch.preprocess.scale`` -> ``fuse`` (the tool's
+    defaults: 100 views, 256^3, 640x640, the TSDF fusion on the card) ->
+    ``simplify --method cluster --cluster 0.01`` (the tool's quadric
+    default on the 256^3 mesh is a host cost of minutes: 151.4 s beside
+    an H100), each step timed; the QEM decimator in this process on
+    the input sphere to 5000 faces. The checks of tests/test_preprocess.py:
+    the scaled mesh in the unit cube, the fused one watertight (99% of
+    its edges shared by two faces) at the scaled radius 0.45 (median
+    within 0.03), the clustered one with fewer faces at that radius
+    within 0.05; the QEM mesh at most 5000 faces at its input's radius
+    within 0.01."""
+    n = 48
+    x, y, z = np.mgrid[:n, :n, :n].astype(np.float32)
+    c = (n - 1) / 2
+    sdf = np.sqrt((x - c) ** 2 + (y - c) ** 2 + (z - c) ** 2) - 0.4 * n
+    v, f, _ = marching_cubes(sdf, 0.0, spacing=1.0 / n)
+    v = (v - v.mean(0)) * (1.3 / 0.4) + np.array([2.0, -1.0, 0.5])
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pre_") as path:
+        dirs = {k: os.path.join(path, k)
+                for k in ("raw", "scaled", "fused", "simple")}
+        os.makedirs(dirs["raw"])
+        write_off(os.path.join(dirs["raw"], "ball.off"), v, f)
+        for step, src, dst, extra in (
+                ("scale", "raw", "scaled", []),
+                ("fuse", "scaled", "fused", []),
+                ("simplify", "fused", "simple",
+                 ["--method", "cluster", "--cluster", "0.01"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 f"segfusion_tpu_torch.preprocess.{step}", "--in_dir",
+                 dirs[src], "--out_dir", dirs[dst], *extra],
+                capture_output=True, text=True, timeout=600)
+            seconds[step] = round(time.perf_counter() - t0, 3)
+            if proc.returncode != 0:
+                raise RuntimeError(f"16e preprocess.{step} failed:\n"
+                                   f"{proc.stderr[-2000:]}")
+        meshes = {k: read_off(os.path.join(dirs[k], "ball.off"))
+                  for k in ("scaled", "fused", "simple")}
+    t0 = time.perf_counter()
+    qv, qf = simplify_quadric(v, f, 5000)
+    seconds["quadric in process"] = round(time.perf_counter() - t0, 3)
+    meshes["quadric"] = (qv - v.mean(0), qf)
+    radius = {k: float(np.median(np.linalg.norm(m[0], axis=1)))
+              for k, m in meshes.items()}
+    r_in = float(np.median(np.linalg.norm(v - v.mean(0), axis=1)))
+    tight = watertight_share(meshes["fused"][1])
+    faces = {k: len(m[1]) for k, m in meshes.items()}
+    log(f"16e preprocessing ({len(f)} faces in): seconds a step "
+        f"{seconds} (each step a new process); faces {faces}; median radius "
+        f"{radius} (input {r_in:.4f}); fused watertight share {tight:.4f}")
+    if not (np.abs(meshes["scaled"][0]).max() <= 0.5 and tight > 0.99
+            and abs(radius["fused"] - 0.45) < 0.03
+            and faces["simple"] < faces["fused"]
+            and abs(radius["simple"] - 0.45) < 0.05
+            and 0 < faces["quadric"] <= 5000
+            and abs(radius["quadric"] - r_in) < 0.01):
+        raise RuntimeError("16e: the preprocessed meshes fail the checks")
+
+
+def tracing_tools(dev):
+    """Phase 16f: ``trace`` around one headline block (phase 4's
+    configuration, 4 frames) writes a Chrome trace holding device
+    kernels; ``nan_guard`` passes finite results through and trips on an
+    injected NaN on the card."""
+    cfg = headline_config()
+    pipe = build_pipeline(cfg, dev)
+    frames = {k: v[:4] for k, v in render_frames(4, 256, 256, dev).items()}
+    volume = headline_volume(dev, HEADLINE_SHAPE)
+    layout = rowvol.RowLayout.for_shape(HEADLINE_SHAPE)
+    stream = pipe._new_stream(layout, pipe._enter_rows(layout, volume))
+    pipe.fuse_sequence_rows(layout, stream, frames)          # warm-up
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as path:
+        with trace(path):
+            pipe.fuse_sequence_rows(layout, stream, frames)
+            torch.cuda.synchronize()
+        name = os.path.join(path, "trace.json")
+        size = os.path.getsize(name)
+        with open(name) as fh:
+            events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    guarded = nan_guard(lambda t: torch.log(t) * 2)
+    ok = bool(torch.isfinite(guarded(torch.ones(8, device=dev))).all())
+    try:
+        guarded(torch.tensor([1.0, -1.0], device=dev))
+        tripped = False
+    except FloatingPointError:
+        tripped = True
+    log(f"16f trace of one headline block: {size} bytes, {len(events)} "
+        f"events, {len(kernels)} device kernels, {busy_ms:.3f} ms of "
+        f"kernel time; nan_guard passes finite {ok}, trips on a NaN "
+        f"{tripped}")
+    if not kernels or not ok or not tripped:
+        raise RuntimeError("16f: the trace or the NaN guard failed")
+
+
+def phase16(dev):
+    """Phase 16: the folded executor and the host tools; returns the
+    launch counts of its main-path runs."""
+    t_all = time.perf_counter()
+    total = {k: 0 for k in read_counts()}
+    executor_forms(dev)
+    for part in (executor_streams, executor_training, converted_checkpoint):
+        t0 = time.perf_counter()
+        for k, n in part(dev).items():
+            total[k] += n
+        torch.cuda.empty_cache()
+        log(f"  ({part.__name__}: {time.perf_counter() - t0:.1f} s)")
+    preprocessing(dev)
+    tracing_tools(dev)
+    log(f"phase 16: {time.perf_counter() - t_all:.1f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2969,16 +3527,24 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device {torch.cuda.get_device_name(0)}")
+    log(f"card default: torch.backends.cuda.matmul."
+        f"allow_bf16_reduced_precision_reduction = "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     log("torch.backends.cudnn.allow_tf32 = False, "
-        "torch.backends.cuda.matmul.allow_tf32 = False")
+        "torch.backends.cuda.matmul.allow_tf32 = False, "
+        "torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction "
+        "= False")
 
     t0 = time.perf_counter()
     builds = [lambda: _build.load_library("shadow_build"),
               lambda: _build.load_library("median3d"),
               lambda: _build.load_library("probes"),
-              lambda: _build.load_host_library(MCUBES_SOURCE)]
+              lambda: _build.load_host_library(MCUBES_SOURCE),
+              lambda: _build.load_host_library(RASTERIZE_SOURCE),
+              lambda: _build.load_host_library(SIMPLIFY_SOURCE)]
     with ThreadPoolExecutor(len(builds)) as pool:
         infos = [info for _, info in pool.map(lambda b: b(), builds)]
     log(f"build: {len(infos)} libraries in parallel, "
@@ -3019,6 +3585,8 @@ def main() -> int:
         launches[k] += n
     for name, r in folded.items():
         results[name].update(r)
+    for k, n in phase16(dev).items():
+        launches[k] += n
 
     replaces = {"build_shadow_dirty": f"{PALLAS}:359",
                 "build_shadow": f"{PALLAS}:254",

@@ -56,6 +56,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import seeded_init
+from ..models import fusionnet_fast as ff
 from ..models.fusionnet import build_fusion_net
 from ..models.layers import training_convolutions
 from ..ops import geometry
@@ -124,10 +125,16 @@ class Pipeline:
     built with
     random weights from ``generator`` (default seed 0). The net is moved
     to ``device`` ("cuda" unless the caller names the CPU) and computes
-    in FUSION_MODEL.compute_dtype; with ``train`` its parameters stay
-    float32 (the optimizer's master weights) and its dropout draws from a
-    generator on ``device`` seeded with SETTINGS.seed, else they are cast
-    to the compute dtype."""
+    in FUSION_MODEL.compute_dtype; with ``train`` or the folded executor
+    its parameters stay float32 (the optimizer's master weights; the
+    fold's input), else they are cast to the compute dtype. With
+    ``train`` its dropout draws from a generator on ``device`` seeded
+    with SETTINGS.seed. Every net call goes through
+    :meth:`_network_estimate`: a bf16 v3 without stacked heads runs the
+    folded executor (``models/fusionnet_fast``) at inference and its
+    matmul-form twin in training, as the JAX package's Pipeline does
+    (SETTINGS.fused_net / fused_net_train / fused_conv3x3 /
+    fused_vortex)."""
 
     def __init__(self, config, segmenter=None, fusion_net=None,
                  device="cuda", generator: Optional[torch.Generator] = None,
@@ -168,19 +175,79 @@ class Pipeline:
         self.geo_dtype = (torch.bfloat16 if _bf16_setting(
             os.environ.get("SEGFUSION_GEO_DTYPE")
             or s.get("geo_dtype", "float32")) else torch.float32)
-        net_dtype = (torch.bfloat16 if _bf16_setting(
+        self.net_dtype = net_dtype = (torch.bfloat16 if _bf16_setting(
             config.FUSION_MODEL.get("compute_dtype")) else torch.float32)
+        # the folded matmul-form executor (models/fusionnet_fast) for v3
+        # with unstacked heads, as the JAX package reads these settings:
+        # fused_net "auto" runs it on bf16 compute, fused_net_train "auto"
+        # follows fused_net; f32 runs keep the eager module
+        fm = config.FUSION_MODEL
+        v3 = fm.name == "v3" and not bool(fm.get("stack_heads", False))
+        fused = s.get("fused_net", "auto")
+        self.fused_net = v3 and (fused == "on" or (
+            fused == "auto" and net_dtype == torch.bfloat16))
+        fused_train = s.get("fused_net_train", "auto")
+        self.fused_net_train = v3 and (fused_train == "on" or (
+            fused_train == "auto" and self.fused_net))
+        self.fused_conv3x3 = s.get("fused_conv3x3", "dots9")
+        self.fused_pack_vortex = s.get("fused_vortex", "plain") == "packed"
+        self._fold_cache = None
         if fusion_net is None:
             fusion_net = seeded_init(
                 build_fusion_net(config.FUSION_MODEL),
                 generator or torch.Generator().manual_seed(0))
+        # float32 parameters for training (the optimizer's masters) and
+        # for the fold (folded in float32, cast once after)
+        keep_f32 = train or self.fused_net
         self.fusion_net = fusion_net.to(
-            self.device, torch.float32 if train else net_dtype).eval()
+            self.device, torch.float32 if keep_f32 else net_dtype).eval()
         self.fusion_net.compute_dtype = net_dtype
+        self.dropout_generator = None
         if train:
-            self.fusion_net.set_dropout_generator(torch.Generator(
-                device=self.device).manual_seed(int(s.get("seed") or 0)))
+            self.dropout_generator = torch.Generator(
+                device=self.device).manual_seed(int(s.get("seed") or 0))
+            self.fusion_net.set_dropout_generator(self.dropout_generator)
         self.segmenter = segmenter
+
+    # -- the fusion net -------------------------------------------------------
+
+    def prepare_params(self):
+        """The folded executor (``models.fusionnet_fast.FastV3``) of the
+        net's current parameters and statistics. Cached, and folded again
+        whenever one of them was replaced or changed in place (an
+        optimizer step, a BatchNorm update, a loaded state): the cache
+        key is each tensor and its version counter."""
+        state = list(self.fusion_net.parameters()) + list(
+            self.fusion_net.buffers())
+        versions = tuple(t._version for t in state)
+        cached = self._fold_cache
+        if (cached is None or cached[1] != versions
+                or len(cached[0]) != len(state)
+                or any(a is not b for a, b in zip(cached[0], state))):
+            fast = ff.FastV3(self.fusion_net, dtype=self.net_dtype,
+                             conv3x3=self.fused_conv3x3,
+                             pack_vortex=self.fused_pack_vortex)
+            self._fold_cache = cached = (state, versions, fast)
+        return cached[2]
+
+    def _network_estimate(self, inputs: Dict[str, torch.Tensor],
+                          train: bool = False) -> torch.Tensor:
+        """FusionNet over B frames' NHWC inputs -> (B, h*w, n_points)
+        estimates: the folded executor at inference when ``fused_net``
+        is on, the matmul-form training forward when ``train`` and
+        ``fused_net_train`` are, else the eager module (in the mode the
+        caller set)."""
+        B, h, w = inputs["tsdf_frame"].shape[:3]
+        if train and self.fused_net_train:
+            est = ff.apply_v3_train(self.fusion_net, inputs,
+                                    dtype=self.net_dtype,
+                                    conv3x3=self.fused_conv3x3,
+                                    generator=self.dropout_generator)
+        elif not train and self.fused_net:
+            est = self.prepare_params()(inputs)
+        else:
+            est = self.fusion_net(inputs).reshape(B, h * w, -1)
+        return est[..., :self.n_points]
 
     # -- semantics ------------------------------------------------------------
 
@@ -403,12 +470,10 @@ class Pipeline:
                           geo_dtype, do_sem=None) -> rowvol.RowUpdates:
         """FusionNet over the block's B frames, then the row updates of
         the clipped tail estimates (and with semantics the packed keys)."""
-        B, h, w = inputs["tsdf_frame"].shape[:3]
-        n = h * w
-        p, t = self.n_points, self.n_tail_points
-        est = self.fusion_net(inputs).reshape(B, n, -1)[..., :p]
+        t = self.n_tail_points
+        est = self._network_estimate(inputs)
         upd_values = torch.clamp(est[..., :t], -self.init_value,
-                                 self.init_value).reshape(B * n, t)
+                                 self.init_value).reshape(-1, t)
         sem_key = (pack_semantic_key(scores.reshape(-1), sem_ids.reshape(-1))
                    if self.semantics else None)
         return rowvol.row_updates(cr, upd_values, sem_key, ray_mask, t,
@@ -467,8 +532,6 @@ class Pipeline:
         frame's gradients into the net's ``.grad``; then the detached,
         clipped estimate integrates (no semantics: the reference trains
         with ``test=False``). Returns ``(loss, rv, new_carry)``."""
-        k, h, w = frame["depth"].shape
-        n = h * w
         p, t = self.n_points, self.n_tail_points
         with torch.no_grad():
             sem_ids = (self._block_semantics(frame)[0]
@@ -477,7 +540,7 @@ class Pipeline:
                 layout, rv, frame, sem_ids, shadow_carry)
             gv, _ = rowvol.extract_rows(gt_shadow, cr, self.init_value,
                                         geometry.INVALID_TSDF_FILL)
-        est = self.fusion_net(inputs).reshape(k, n, -1)[..., :p]
+        est = self._network_estimate(inputs, train=True)
         loss = fusion_loss(_fused_for_loss(fv, fw, est, self.init_value),
                            gv[None, :, :p], ray_mask[None],
                            **self.loss_weights)
@@ -574,10 +637,9 @@ class Pipeline:
                            else (None, None))
         depth, filtered, values, inputs = self._flat_frontend(volume, frame,
                                                               sem_ids)
-        est = self.fusion_net(inputs).reshape(1, depth.numel(), -1)
+        est = self._network_estimate(inputs)
         upd_values, upd_idx, upd_weights, ray_mask = \
-            self._volume_update_args(values, est[..., :self.n_points],
-                                     filtered)
+            self._volume_update_args(values, est, filtered)
         self._integrate_geo(volume, upd_values, upd_idx, upd_weights,
                             ray_mask)
         if self.semantics:
@@ -602,7 +664,7 @@ class Pipeline:
             values_gt = self._extract_gt(depth, frame["extrinsics"][0],
                                          frame["intrinsics"][0], gt_tsdf,
                                          volume)
-        est = self.fusion_net(inputs).reshape(1, depth.numel(), -1)[..., :p]
+        est = self._network_estimate(inputs, train=True)
         ray_mask = filtered.reshape(-1) != 0.0
         loss = fusion_loss(_fused_for_loss(values.fusion_values,
                                            values.fusion_weights, est,
@@ -733,9 +795,8 @@ class Pipeline:
                 None if sem_ids is None else sem_ids[s])
             per_scene.append((values, filtered))
             nets.append(inputs)
-        est = self.fusion_net({k: torch.cat([i[k] for i in nets])
-                               for k in nets[0]})
-        est = est.reshape(S, depth.numel(), -1)[..., :self.n_points]
+        est = self._network_estimate({k: torch.cat([i[k] for i in nets])
+                                      for k in nets[0]})
         parts = []
         for s, (values, filtered) in enumerate(per_scene):
             upd_values, upd_idx, upd_weights, ray_mask = \

@@ -300,9 +300,9 @@ class SpatialShardedFusion:
             depth.reshape(-1), indices, weights, points_w, *lin_valid)
         inputs = _prepare_fusion_input(depth, values, sem_ids, pipe.n_points,
                                        pipe.n_classes, pipe.use_semantics)
-        est = pipe.fusion_net(inputs).reshape(1, depth.numel(), -1)
+        est = pipe._network_estimate(inputs)
         upd_values, upd_idx, upd_weights, ray_mask = pipe._volume_update_args(
-            values, est[..., :pipe.n_points], filtered)
+            values, est, filtered)
         if isinstance(upd_idx, tuple):
             lin, valid = upd_idx
         else:
