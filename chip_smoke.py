@@ -145,12 +145,35 @@ Phases, each of which raises (exit code 1, no result line) on failure:
       (and ``python -m``), then ``test_fusion`` from it (K1/K3/K4/K5);
    e. ``python -m segfusion_tpu_torch.preprocess.{scale,fuse,simplify}``
       on one closed mesh (fuse at the tool's defaults, on the card);
-   f. ``trace`` around a headline block, ``nan_guard`` on a NaN.
+   f. ``trace`` around a headline block, ``nan_guard`` on a NaN;
+17. the real-data loaders on their datasets' own layouts, written from
+   Synthetic rooms (depth rendered on the card) and loaded with the
+   configs' YAML files:
+   a. the host libraries (cv2 and PIL imported; the machine has no
+      h5py, so the Replica runs that read the gt grid, ``test_fusion``
+      and ``train_fusion`` on replica_accuracy.yaml, are not run);
+   b. a Replica tree (2 rooms x 32 frames of 512x512, raw camera
+      matrices) through the port's ``Replica`` at replica_accuracy.yaml's
+      256x256: poses within 1e-5, gt depth to the millimetre, the two
+      rooms interleaved frame by frame; host ms a frame;
+   e. ``train_segmentation`` on replica_multi.yaml (stage 2, RGB + ToF,
+      batch 8, bf16) for one epoch over the tree from seeded stage-1
+      checkpoints, then ``test_segmentation`` on its best.ckpt;
+   f. a raw ScanNet scan (32 frames of 640x480, a ply, no hdf):
+      ``test_fusion`` on scannet.yaml over ``create_grid``'s 401^3 grid
+      at 1 cm (seeded v3 gf 6 and 21-class stage-2 checkpoints at the
+      config's paths; K1/K3/K4/K5), each stage and the loader timed; then
+      ``test_segmentation`` on scannet_multi.yaml writing one benchmark
+      PNG a frame;
+   g. every augmentation key on a 256x256 pair;
+18. ``quality_demo`` on synthetic_tpu_demo_joint.yaml, 2 of its 3 epochs
+   of 60 frames: the trained TSDF IoU and mesh F-score must each beat
+   random init's by DEMO_MARGIN.
 
 Launch counts are reset just before each main-path run (3c's probe
 mains, 4, 4b, 5, 8, 9, the trainer of 10, 11c, 14's runs, 15b, c and e,
-and 16b, c and d) and read just after; the kernel checks' launches are
-not counted.
+16b, c and d, 17f's ``test_fusion`` and 18) and read just after; the
+kernel checks' launches are not counted.
 
 Then one JSON line of per-kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result where
@@ -159,9 +182,11 @@ torch sees no CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
+import random
 import subprocess
 import sys
 import tempfile
@@ -173,23 +198,28 @@ import numpy as np
 import torch
 
 from segfusion_tpu_torch import test_fusion as entry
-from segfusion_tpu_torch.config import Config, default_config
+from segfusion_tpu_torch.config import (Config, default_config,
+                                        get_data_config, load_config)
 from segfusion_tpu_torch.core import tsdf_volume as ctv
 from segfusion_tpu_torch.core.database import Database
 from segfusion_tpu_torch.core.pipeline import Pipeline
 from segfusion_tpu_torch.core.volume import Voxelgrid, init_scene_volume
+from segfusion_tpu_torch.data import ScanNet, get_data
+from segfusion_tpu_torch.data.augmentations import get_composed_augmentations
+from segfusion_tpu_torch.data.replica import raw_camera_matrix
 from segfusion_tpu_torch.data.synthetic import Synthetic, SyntheticScene
 from segfusion_tpu_torch.headline import (HEADLINE_SHAPE, build_pipeline,
                                           headline_config, headline_volume,
                                           render_frames)
 from segfusion_tpu_torch.models import seeded_init
-from segfusion_tpu_torch.models.adapnet import SegmenterAdapter
+from segfusion_tpu_torch.models.adapnet import SegmenterAdapter, build_adapnet
 from segfusion_tpu_torch.models import fusionnet_fast as ff
 from segfusion_tpu_torch.models.fusionnet import build_fusion_net
 from segfusion_tpu_torch.convert_checkpoint import convert_checkpoint
 from segfusion_tpu_torch.ops import distance_transform as cdt
 from segfusion_tpu_torch.ops import geometry, rowvol
 from segfusion_tpu_torch.ops import tvl1 as ctvl1
+from segfusion_tpu_torch.ops.raycast import render_depth
 from segfusion_tpu_torch.ops.tsdf_fusion import tsdf_from_depth_views
 from segfusion_tpu_torch.ops.integrate import pack_semantic_key
 from segfusion_tpu_torch.ops.kernels import _build
@@ -204,6 +234,7 @@ from segfusion_tpu_torch.parallel.spatial import (SpatialShardedFusion,
                                                   unshard_volume_spatial)
 from segfusion_tpu_torch.probes import _lib as probe_lib
 from segfusion_tpu_torch import seg_quality_demo as seg_demo
+from segfusion_tpu_torch.quality_demo import quality_demo
 from segfusion_tpu_torch import test_segmentation as seg_test
 from segfusion_tpu_torch import train_segmentation as seg_train
 from segfusion_tpu_torch.train_fusion import train_fusion
@@ -215,9 +246,11 @@ from segfusion_tpu_torch.probes import (dynamic_gather, pallas_caps,
                                         random_access, shadow_debug,
                                         shadow_variants)
 from segfusion_tpu_torch.utils import torch_convert
-from segfusion_tpu_torch.utils.convert import fusionnet_from_checkpoint
+from segfusion_tpu_torch.utils.checkpoints import save_checkpoint
+from segfusion_tpu_torch.utils.convert import (fusionnet_from_checkpoint,
+                                               to_flax)
 from segfusion_tpu_torch.utils.mesh import MCUBES_SOURCE, marching_cubes
-from segfusion_tpu_torch.utils.meshio import read_off, write_off
+from segfusion_tpu_torch.utils.meshio import read_off, write_off, write_ply
 from segfusion_tpu_torch.utils.rasterize import RASTERIZE_SOURCE
 from segfusion_tpu_torch.utils.simplify import (SIMPLIFY_SOURCE,
                                                 simplify_quadric)
@@ -258,6 +291,9 @@ PROBE_REPLACES = {
 # H100 SXM: the float32 rate outside the tensor cores (the median's
 # operation bound; the memory rate is probe_lib.HBM_BYTES_PER_S)
 F32_OPS_PER_S = 67e12
+# the joint quality demo (phase 18): the trained net's TSDF IoU and mesh
+# F-score must each beat random init's by this much
+DEMO_MARGIN = 0.1
 
 
 def log(msg: str):
@@ -1258,7 +1294,7 @@ def run_stages(db, s, out_dir):
         ("evaluate_semantics", lambda: db.evaluate_semantics("test")[0]),
         ("evaluate_fscore", lambda: db.evaluate_fscore(0.05)[0]),
         ("get_mesh(semantics=True)", lambda: db.get_mesh(s, True)),
-        # ply: the card's machine may have no h5py for the hdf5 volumes
+        # ply: the card's machine has no h5py for the hdf5 volumes
         ("save(ply)", lambda: db.save(out_dir, "ply", s)),
     ]
     metrics, mesh = {}, None
@@ -1339,7 +1375,7 @@ def fuse_many_run(dev):
 def entry_point(dev):
     """``segfusion_tpu_torch.test_fusion`` with the configuration of
     configs/fusion/synthetic_tpu_demo_joint.yaml, cut to 16 frames; hdf5
-    saving replaced by ply (the card's machine may have no h5py)."""
+    saving replaced by ply (the card's machine has no h5py)."""
     cfg = default_config()
     cfg.SETTINGS.update(save_mode="ply", num_workers=0)
     cfg.FUSION_MODEL.update(name="v3", n_points=9, n_tail_points=7,
@@ -1602,9 +1638,8 @@ def training_reference(dev):
 
 
 def synthetic_small_config(path: str):
-    """configs/fusion/synthetic_small.yaml built in Python (the card's
-    machine has no PyYAML), cut to 8 frames; ply saves only (it may have
-    no h5py)."""
+    """configs/fusion/synthetic_small.yaml built in Python, cut to 8
+    frames; ply saves only (the card's machine has no h5py)."""
     return Config({
         "SETTINGS": {"num_workers": 0, "experiment_path": path,
                      "save_mode": "ply", "eval_freq": 16, "log_freq": 8,
@@ -1674,7 +1709,7 @@ def train_entry_point(dev):
 def seg_config(path: str, stage: int = 1, input_key: str = "tof_depth",
                **pretrained):
     """configs/segmentation/replica_{depth,rgb,multi}.yaml's model and
-    optimizer built in Python (the card's machine has no PyYAML):
+    optimizer built in Python:
     AdapNet++ at ResNet-50 widths, 30 classes, bf16 compute on f32
     master weights, batch 8, sgd at lr 0.005 (momentum 0.9, weight decay
     5e-4), poly_lr, num_workers 8 (the port's loader decodes in one
@@ -3518,6 +3553,442 @@ def phase16(dev):
     return total
 
 
+# -- phase 17: the real-data loaders on their datasets' own layouts ----------
+
+REPLICA_FUSION = "configs/fusion/replica_accuracy.yaml"
+REPLICA_SEG = "configs/segmentation/replica_multi.yaml"
+SCANNET_FUSION = "configs/fusion/scannet.yaml"
+SCANNET_SEG = "configs/segmentation/scannet_multi.yaml"
+DEMO_JOINT = "configs/fusion/synthetic_tpu_demo_joint.yaml"
+REPLICA_DIRS = ("left_depth_gt", "left_depth_noise_5.0", "left_rgb",
+                "left_camera_matrix", "left_class30")
+SCANNET_DIRS = ("depth", "color", "label-filt", "pose", "intrinsic")
+# a Synthetic room's parts (0 no surface, 1 walls, 2 sphere, 3 box) as
+# Replica class30 ids (wall, beanbag, table) and ScanNet raw label ids
+# (wall, chair, otherfurniture: NYU-40 ids 1, 5 and 39 through the tsv)
+REPLICA_OF_PART = np.array([0, 26, 1, 23], np.uint8)
+SCANNET_RAW_OF_PART = np.array([0, 1, 5, 39], np.uint16)
+# ScanNet's depth camera at 640x480
+SCANNET_DEPTH_K = np.array([[577.870605, 0, 319.5], [0, 577.870605, 239.5],
+                            [0, 0, 1]], np.float32)
+
+
+def room_views(scene, poses, intrinsics, h: int, w: int, dev, fine: float):
+    """(depth maps (n, h, w) f32, each pixel's room part (n, h, w)) of the
+    Synthetic room ``scene`` from camera-to-world ``poses``: the port's
+    ``render_depth`` on ``dev`` over the room's SDF sampled at ``fine``
+    metres; part 0 where no surface was hit."""
+    g, _ = scene.grid(fine, 10.0, pad=2)
+    depth = render_depth(
+        torch.as_tensor(g.volume, device=dev),
+        torch.as_tensor(poses, device=dev),
+        torch.as_tensor(intrinsics, device=dev),
+        torch.as_tensor(g.origin, device=dev), g.resolution, h, w,
+        near=0.05, far=4.0 * scene.half, n_steps=512).cpu().numpy()
+    pts = geometry.unproject(torch.as_tensor(depth), torch.as_tensor(poses),
+                             torch.as_tensor(intrinsics)).numpy()
+    parts = scene.surface_labels(pts).reshape(depth.shape)
+    return depth, np.where(depth > 0, parts, 0)
+
+
+def write_replica_tree(root: str, seeds, n_frames: int, res: int, dev,
+                       fine: float):
+    """A Replica tree under ``root`` from Synthetic rooms: for each seed a
+    scene ``room_<seed>`` with one trajectory ``1`` of ``n_frames`` res x
+    res frames: ``left_rgb`` (seeded colour), ``left_depth_gt`` (uint16
+    mm), ``left_depth_noise_5.0`` (the same with seeded 5 mm noise),
+    ``left_class30`` (REPLICA_OF_PART) and ``left_camera_matrix`` (each
+    pose in Replica's raw convention, ``raw_camera_matrix``), but no gt
+    sdf hdf (the card's machine has no h5py); and the scene list
+    ``list.txt`` in lists/replica's line format. Returns (the list's
+    path, {scene: (poses, depth mm)})."""
+    import cv2
+    rng = np.random.RandomState(17)
+    f = res / 2.0                       # hfov 90
+    intrinsics = np.array([[f, 0, f], [0, f, f], [0, 0, 1]], np.float32)
+    truth, lines = {}, []
+    for seed in seeds:
+        scene = SyntheticScene(seed)
+        name = f"room_{seed}"
+        base = os.path.join(root, name, "1")
+        for sub in REPLICA_DIRS:
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+        poses = scene.camera_poses(n_frames)
+        depth, parts = room_views(scene, poses, intrinsics, res, res, dev,
+                                  fine)
+        mm = np.round(depth * 1000).astype(np.uint16)
+        noisy = np.where(depth > 0,
+                         depth + rng.normal(0, 0.005, depth.shape), 0)
+        noisy_mm = np.round(np.clip(noisy, 0, 65.535) * 1000).astype(
+            np.uint16)
+        for i in range(n_frames):
+            def out(sub, ext=".png"):
+                return os.path.join(base, sub, f"{i}{ext}")
+            cv2.imwrite(out("left_rgb"),
+                        rng.randint(0, 256, (res, res, 3), dtype=np.uint8))
+            cv2.imwrite(out("left_depth_gt"), mm[i])
+            cv2.imwrite(out("left_depth_noise_5.0"), noisy_mm[i])
+            cv2.imwrite(out("left_class30"), REPLICA_OF_PART[parts[i]])
+            np.savetxt(out("left_camera_matrix", ".txt"),
+                       raw_camera_matrix(poses[i]))
+        truth[name] = (poses, mm)
+        lines.append(" ".join(f"{name}/1/{d}" for d in REPLICA_DIRS))
+    path = os.path.join(root, "list.txt")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return path, truth
+
+
+def box_mesh(lo: float, hi: float):
+    """(vertices (8, 3), faces (12, 3)) of the cube [lo, hi]^3."""
+    verts = np.array([[x, y, z] for x in (lo, hi) for y in (lo, hi)
+                      for z in (lo, hi)], np.float32)
+    faces = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5],
+                      [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],
+                      [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]], np.int32)
+    return verts, faces
+
+
+def write_scannet_tree(root: str, seed: int, n_frames: int, dev,
+                       fine: float, h: int = 480, w: int = 640,
+                       scene_name: str = "scene0000_00"):
+    """A raw ScanNet scan (no hdf) under ``root`` from the Synthetic room
+    ``seed``: ``scans/<scene>/`` with ``color/*.jpg`` (seeded colour),
+    ``depth/*.png`` (uint16 mm), ``label-filt/*.png`` (uint16 raw ids,
+    SCANNET_RAW_OF_PART), ``pose/*.txt`` (camera-to-world),
+    ``intrinsic/intrinsic_depth.txt`` (SCANNET_DEPTH_K) and
+    ``<scene>_vh_clean_2.ply`` (the room's walls); the tsv label map
+    (raw id i -> NYU-40 id i for i <= 40) and the scene list, one
+    ``scans/<scene>`` line (the loader takes a line's first entry as the
+    scan's directory, so lists/scannet's lines, which start with
+    ``scans/<scene>/depth``, do not load). Returns (the list's path,
+    poses, depth mm)."""
+    import cv2
+    rng = np.random.RandomState(23)
+    sdir = os.path.join(root, "scans", scene_name)
+    for sub in SCANNET_DIRS:
+        os.makedirs(os.path.join(sdir, sub), exist_ok=True)
+    k4 = np.eye(4)
+    k4[:3, :3] = SCANNET_DEPTH_K
+    np.savetxt(os.path.join(sdir, "intrinsic", "intrinsic_depth.txt"), k4)
+    scene = SyntheticScene(seed)
+    poses = scene.camera_poses(n_frames)
+    depth, parts = room_views(scene, poses, SCANNET_DEPTH_K, h, w, dev, fine)
+    mm = np.round(depth * 1000).astype(np.uint16)
+    for i in range(n_frames):
+        cv2.imwrite(os.path.join(sdir, "color", f"{i}.jpg"),
+                    rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+        cv2.imwrite(os.path.join(sdir, "depth", f"{i}.png"), mm[i])
+        cv2.imwrite(os.path.join(sdir, "label-filt", f"{i}.png"),
+                    SCANNET_RAW_OF_PART[parts[i]])
+        np.savetxt(os.path.join(sdir, "pose", f"{i}.txt"), poses[i])
+    verts, faces = box_mesh(-scene.half, scene.half)
+    write_ply(os.path.join(sdir, scene_name + "_vh_clean_2.ply"), verts,
+              faces)
+    with open(os.path.join(root, "scannetv2-labels.combined.tsv"),
+              "w") as fh:
+        fh.write("id\traw_category\tnyu40id\n")
+        for raw in range(1, 41):
+            fh.write(f"{raw}\tcategory{raw}\t{raw}\n")
+    path = os.path.join(root, "list.txt")
+    with open(path, "w") as fh:
+        fh.write(f"scans/{scene_name}\n")
+    return path, poses, mm
+
+
+@contextlib.contextmanager
+def stage_seconds(targets):
+    """Within the block, each ``(owner, name)`` method is wrapped to add
+    its host seconds to the yielded dict under ``"Owner.name"``; a method
+    ``synced`` also waits for the card before its clock stops (the loader's
+    ``__getitem__``, which runs in the prefetch thread, does not)."""
+    secs, saved = {}, []
+    for owner, name, synced in targets:
+        fn = getattr(owner, name)
+
+        def timed(*args, _fn=fn, _key=f"{owner.__name__}.{name}",
+                  _sync=synced, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                if _sync:
+                    torch.cuda.synchronize()
+                secs[_key] = secs.get(_key, 0.0) + time.perf_counter() - t0
+        saved.append((owner, name, fn))
+        setattr(owner, name, timed)
+    try:
+        yield secs
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def seeded_checkpoint(net, path: str, seed: int):
+    """``net`` with seeded random weights, written as a Flax checkpoint at
+    ``path``."""
+    seeded_init(net, torch.Generator().manual_seed(seed))
+    params, stats = to_flax(net)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_checkpoint({"params": params, "batch_stats": stats}, path)
+    return path
+
+
+def replica_loader(dev, root: str, frames: int = 32, res: int = 512):
+    """Phase 17b: the Replica tree (2 rooms x 32 frames of 512x512) and
+    the port's loader on replica_accuracy.yaml (256x256, tof_depth,
+    max_depth_diversity): every pose within 1e-5, every gt depth to the
+    millimetre of the nearest resize of what was written, labels and
+    mask; host ms a frame. Returns the scene list."""
+    import cv2
+    t0 = time.perf_counter()
+    lst, truth = write_replica_tree(root, (0, 1), frames, res, dev, 0.025)
+    t_tree = time.perf_counter() - t0
+    cfg = load_config(REPLICA_FUSION)
+    cfg.DATA.update(root_dir=root, test_scene_list=lst)
+    ds = get_data("Replica", get_data_config(cfg, "test"), dev)
+    order = [f"room_{i % 2}/1/{i // 2}" for i in range(2 * frames)]
+    t0 = time.perf_counter()
+    samples = [ds[i] for i in range(len(ds))]
+    ms = (time.perf_counter() - t0) / len(samples) * 1e3
+    pose_err = depth_err = 0.0
+    for s in samples:
+        scene, _, i = s["frame_id"].split("/")
+        poses, mm = truth[scene]
+        pose_err = max(pose_err, float(np.abs(
+            s["extrinsics"] - poses[int(i)]).max()))
+        want = cv2.resize(mm[int(i)], (256, 256),
+                          interpolation=cv2.INTER_NEAREST)
+        depth_err = max(depth_err, float(np.abs(
+            s["depth_gt"] * 1000 - want).max()))
+        if (s["image"].shape != (256, 256, 3)
+                or not set(np.unique(s["semantic_gt"])) <= set(
+                    REPLICA_OF_PART.tolist())
+                or not np.array_equal(s["mask"], (s["tof_depth"] > 0.05)
+                                      & (s["tof_depth"] < 5.0))):
+            raise RuntimeError(f"Replica frame {s['frame_id']}: image, "
+                               "labels or mask wrong")
+    log(f"17b Replica tree (2 rooms x {frames} frames, {res}x{res}, depth "
+        f"rendered on {dev}): written in {t_tree:.2f} s; the loader at "
+        f"256x256: {len(samples)} frames, {ms:.3f} ms a frame on the host "
+        f"(decode + "
+        f"nearest resize + normalise); largest pose error {pose_err:.3g}, "
+        f"largest depth error {depth_err:.3g} mm")
+    if [s["frame_id"] for s in samples] != order:
+        raise RuntimeError("Replica: max_depth_diversity did not "
+                           "interleave the two rooms frame by frame")
+    if pose_err > 1e-5 or depth_err > 0.5:
+        raise RuntimeError(f"Replica: pose error {pose_err}, depth error "
+                           f"{depth_err} mm")
+    return lst
+
+
+def replica_segmentation(dev, root: str, lst: str, frames: int = 64):
+    """Phase 17e: ``train_segmentation`` on replica_multi.yaml (stage 2,
+    RGB + ToF, SSMA, batch 8, bf16) over the tree's ``frames``, 1 epoch,
+    from seeded stage-1 rgb / tof checkpoints at the config's paths; then
+    ``test_segmentation`` on its best.ckpt."""
+    cfg = load_config(REPLICA_SEG)
+    model = cfg.SEMANTIC_2D_MODEL
+    for key, seed in (("pretrained_rgb", 1), ("pretrained_tof", 2)):
+        stage1 = Config(dict(model, stage=1))
+        model[key] = seeded_checkpoint(build_adapnet(stage1),
+                                       os.path.join(root, model[key]), seed)
+    cfg.SETTINGS.experiment_path = os.path.join(root, "replica_seg")
+    cfg.TRAINING.update(n_epochs=1, val_ratio=4)
+    cfg.TESTING.update(test_ratio=4)
+    cfg.DATA.update(root_dir=root, train_scene_list=lst, val_scene_list=lst,
+                    test_scene_list=lst)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    net, ws, hist = seg_train.train_segmentation(cfg, dev, "phase 17e")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    steps, secs = hist["steps"][0], hist["train_seconds"][0]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"17e train_segmentation (replica_multi.yaml: stage 2 RGB + ToF, "
+        f"256x256, batch 8, bf16; 1 epoch of {frames} Replica frames): "
+        f"{8 * steps / secs:.2f} images/s over the epoch, first step "
+        f"included ({steps} steps, {secs:.2f} s; all {total:.2f} s); peak "
+        f"device memory {peak:.2f} GiB; loss {hist['train_loss']}; val "
+        f"{hist['val']}")
+    ckpt = os.path.join(ws.model_path, "best.ckpt")
+    if not (all(np.isfinite(hist["train_loss"])) and os.path.exists(ckpt)):
+        raise RuntimeError("17e: non-finite loss or no best.ckpt")
+    del net
+    cfg.TESTING.semantic_2d_model_path = ckpt
+    cfg.TIMESTAMP = None
+    t0 = time.perf_counter()
+    metrics = seg_test.test_segmentation(cfg, dev)
+    vis = os.path.join(cfg.SETTINGS.experiment_path, cfg.TIMESTAMP,
+                       "output", "vis")
+    log(f"17e test_segmentation on its best.ckpt ({frames // 4} frames): "
+        f"{time.perf_counter() - t0:.2f} s; {metrics}; "
+        f"{len(os.listdir(vis))} strips")
+    if (len(os.listdir(vis)) != min(10, frames // 4)
+            or not all(np.isfinite(v) for v in metrics.values())):
+        raise RuntimeError("17e test_segmentation: strips or metrics")
+
+
+def scannet_raw(dev, root: str, frames: int = 32):
+    """Phase 17f: a raw ScanNet scan (32 frames of 640x480, no hdf):
+    ``test_fusion`` on scannet.yaml (320x240, v3 gf 6, AdapNet++ stage 2
+    with 21 classes predicting; seeded checkpoints at the config's paths;
+    ply saves: the card's machine has no h5py) over ``create_grid``'s 1 cm
+    grid, then ``test_segmentation`` on scannet_multi.yaml with
+    ``output_benchmark``; returns the launch counts of ``test_fusion``."""
+    import cv2
+    t0 = time.perf_counter()
+    lst, _, _ = write_scannet_tree(root, 2, frames, dev, 0.025)
+    log(f"17f ScanNet scan ({frames} frames, 640x480, depth rendered on "
+        f"{dev}, no hdf) written in {time.perf_counter() - t0:.2f} s")
+    cfg = load_config(SCANNET_FUSION)
+    testing = cfg.TESTING
+    testing.fusion_model_path = seeded_checkpoint(
+        build_fusion_net(cfg.FUSION_MODEL),
+        os.path.join(root, testing.fusion_model_path), 3)
+    testing.semantic_2d_model_path = seeded_checkpoint(
+        build_adapnet(cfg.SEMANTIC_2D_MODEL),
+        os.path.join(root, testing.semantic_2d_model_path), 4)
+    cfg.SETTINGS.update(experiment_path=os.path.join(root, "scannet_ws"),
+                        save_mode="ply")
+    cfg.DATA.update(root_dir=root, test_scene_list=lst)
+    shape = get_data("ScanNet", get_data_config(cfg, "test"), dev
+                     ).create_grid("scene0000_00", 0.1)[0].shape
+    stages = [(ScanNet, "__getitem__", False)] + [
+        (Database, name, True) for name in (
+            "__init__", "filter", "filter_semantics", "evaluate",
+            "evaluate_fscore", "save")] + [(Pipeline, "fuse_many", True)]
+    torch.cuda.synchronize()
+    reset_counts()
+    with stage_seconds(stages) as stage:
+        t0 = time.perf_counter()
+        results = entry.test_fusion(cfg, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = read_counts()
+    fuse = stage["Pipeline.fuse_many"]
+    log(f"17f test_fusion (scannet.yaml, {frames} frames of 320x240 into "
+        f"{shape} at 1 cm from the ply, v3 gf 6, stage 2 "
+        f"predicting 21 classes): {secs:.3f} s in all; fuse_many "
+        f"{fuse:.3f} s = {frames / fuse:.2f} frames/s; the loader "
+        f"{stage['ScanNet.__getitem__']:.3f} s in its thread (a share "
+        f"{stage['ScanNet.__getitem__'] / secs:.3f} of the wall time); "
+        f"stages {json.dumps({k: round(v, 3) for k, v in stage.items()})}"
+        f"; launches {counts}")
+    log(f"  eval_results {json.dumps(results)}")
+    if not results or not all(np.isfinite(v) for v in results.values()):
+        raise RuntimeError(f"17f test_fusion: metrics {results}")
+    require(counts, ["median_filter3d", "build_shadow_dirty",
+                     "reconcile_slot", "reconcile_key"], "17f test_fusion")
+
+    scfg = load_config(SCANNET_SEG)
+    scfg.SETTINGS.experiment_path = os.path.join(root, "scannet_seg")
+    scfg.TESTING.update(semantic_2d_model_path=testing.semantic_2d_model_path,
+                        output_benchmark=True)
+    scfg.DATA.update(root_dir=root, test_scene_list=lst)
+    t0 = time.perf_counter()
+    metrics = seg_test.test_segmentation(scfg, dev)
+    bench = os.path.join(scfg.SETTINGS.experiment_path, scfg.TIMESTAMP,
+                         "output", "benchmark")
+    files = sorted(os.listdir(bench))
+    first = cv2.imread(os.path.join(bench, files[0]), -1)
+    log(f"17f test_segmentation (scannet_multi.yaml, output_benchmark): "
+        f"{time.perf_counter() - t0:.2f} s; {metrics}; {len(files)} "
+        f"benchmark PNGs, {files[0]} {first.shape} {first.dtype} ids "
+        f"{np.unique(first).tolist()}")
+    if (files != sorted(f"scene0000_00_{i}.png" for i in range(frames))
+            or first.shape != (240, 320) or first.max() >= 21):
+        raise RuntimeError("17f: benchmark PNGs missing or wrong")
+    return counts
+
+
+def augmentations_check():
+    """Phase 17g: ``get_composed_augmentations`` over every key on a
+    256x256 Replica-sized pair, seeded: shapes, dtypes, and the mask
+    label-valued (the random rescale-and-crops at half the frame, so
+    that the crop never has to enlarge, which resizes the mask
+    bicubically as in the JAX package); host ms."""
+    keys = {"gamma": 0.2, "hue": 0.1, "brightness": 0.2, "saturation": 0.2,
+            "contrast": 0.2, "rcrop": 224, "ccrop": 200, "hflip": 0.5,
+            "vflip": 0.5, "scale": 256, "rscale_crop": 128, "rsize": 128,
+            "rsizecrop": 224, "rotate": 10, "translate": 8}
+    rng = np.random.RandomState(5)
+    img = rng.uniform(0, 255, (256, 256, 3)).astype(np.float32)
+    mask = rng.randint(0, 30, (256, 256)).astype(np.uint8)
+    t0 = time.perf_counter()
+    out = {}
+    for key, param in keys.items():
+        aug = get_composed_augmentations({key: param}, rng=random.Random(7))
+        out[key] = aug(img, mask)
+    ms = (time.perf_counter() - t0) * 1e3
+    bad = [k for k, (i, m) in out.items()
+           if i.dtype != np.float32 or m.dtype != np.uint8
+           or i.shape[:2] != m.shape
+           or not set(np.unique(m)) <= set(np.unique(mask))]
+    log(f"17g augmentations: {len(out)} keys on a 256x256 pair in "
+        f"{ms:.1f} ms on the host; shapes "
+        f"{ {k: i.shape[:2] for k, (i, _) in out.items()} }")
+    if bad:
+        raise RuntimeError(f"17g augmentations: {bad}")
+
+
+def phase17(dev):
+    """Phase 17: the real-data loaders on their datasets' layouts; returns
+    the launch counts of its main-path run (17f's test_fusion)."""
+    import importlib.util
+
+    import cv2
+    import PIL
+    t_all = time.perf_counter()
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    log(f"17a host libraries: cv2 {cv2.__version__}, PIL {PIL.__version__}"
+        f", h5py importable: {has_h5py} (17c-d, Replica test_fusion and "
+        f"train_fusion, read the gt grid from hdf5 and are not run here)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_replica_") as root:
+        lst = replica_loader(dev, root)
+        replica_segmentation(dev, root, lst)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scannet_") as root:
+        counts = scannet_raw(dev, root)
+    torch.cuda.empty_cache()
+    augmentations_check()
+    log(f"phase 17: {time.perf_counter() - t_all:.1f} s")
+    return counts
+
+
+def joint_demo(dev):
+    """Phase 18: ``quality_demo`` on synthetic_tpu_demo_joint.yaml (60
+    frames an epoch, 256x256, voxel 0.05, v3 gf 6 with the semantic head,
+    bf16; ply saves), cut from 3 epochs to 2: the config's 3 took 99-116 s
+    on an H100 at 700 W, over the phase's ~90 s. The trained net against
+    random weights, each through ``test_fusion``. Fails unless the trained
+    TSDF IoU and mesh F-score each beat random init's by DEMO_MARGIN;
+    returns the launch counts."""
+    cfg = load_config(DEMO_JOINT)
+    cfg.TRAINING.n_epochs = 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_") as path:
+        cfg.SETTINGS.update(experiment_path=path, save_mode="ply")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        trained, rand, _ = quality_demo(cfg, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+    log(f"phase 18 joint quality demo (synthetic_tpu_demo_joint.yaml, 2 "
+        f"epochs x 60 frames): {secs:.1f} s; launches {counts}")
+    log(f"  trained {json.dumps(trained)}")
+    log(f"  random {json.dumps(rand)}")
+    short = [k for k in ("iou", "mesh_fscore")
+             if not trained[k] >= rand[k] + DEMO_MARGIN]
+    if short:
+        raise RuntimeError(f"joint demo: trained {short} not above random "
+                           f"init by {DEMO_MARGIN}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3585,8 +4056,10 @@ def main() -> int:
         launches[k] += n
     for name, r in folded.items():
         results[name].update(r)
-    for k, n in phase16(dev).items():
-        launches[k] += n
+    for phase in (phase16, phase17, joint_demo):
+        for k, n in phase(dev).items():
+            launches[k] += n
+        torch.cuda.empty_cache()
 
     replaces = {"build_shadow_dirty": f"{PALLAS}:359",
                 "build_shadow": f"{PALLAS}:254",

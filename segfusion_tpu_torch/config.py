@@ -8,11 +8,12 @@ imported only by :func:`load_config`.
 from __future__ import annotations
 
 import copy
+import json
 import os
 from typing import Any, Mapping
 
-__all__ = ["Config", "load_config", "default_config", "with_defaults",
-           "get_data_config"]
+__all__ = ["Config", "load_config", "load_config_from_yaml",
+           "default_config", "with_defaults", "get_data_config"]
 
 
 class Config(dict):
@@ -38,13 +39,32 @@ class Config(dict):
         except KeyError as e:
             raise AttributeError(key) from e
 
+    def __delattr__(self, key):
+        del self[key]
+
     def __deepcopy__(self, memo):
         return Config(copy.deepcopy(dict(self), memo))
+
+    def get_path(self, dotted: str, default=None):
+        """The value at a dotted path ("TRAINING.optimizer.lr"), else
+        ``default``."""
+        node: Any = self
+        for part in dotted.split("."):
+            if not isinstance(node, Mapping) or part not in node:
+                return default
+            node = node[part]
+        return node
 
     def to_dict(self) -> dict:
         """Plain nested dicts (for a json snapshot of the config)."""
         return {k: v.to_dict() if isinstance(v, Config) else v
                 for k, v in self.items()}
+
+    def save_json(self, path: str):
+        """The config as indented json (values json cannot hold as
+        strings)."""
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2, default=str)
 
 
 _DEFAULTS = {
@@ -100,14 +120,21 @@ _DEFAULTS = {
     },
     "DATA": {
         "dataset": "Synthetic",
+        "root_dir": None,
         "semantics": None,
         "semantic_strategy": "gt",
         "semantic_grid": False,
+        "data_load_strategy": "max_depth_diversity",
+        "load_scenes_at_once": 1,
         "input": "tof_depth",
+        "target": "depth_gt",
         "resx": 256,
         "resy": 256,
         "init_value": 0.1,
+        "truncation_strategy": "standard",
+        "normalize": True,
         "pad": 2,
+        "frame_ratio": 1,
         "n_classes": 0,
         "pad_shape_multiple": 1,
     },
@@ -176,3 +203,8 @@ def load_config(path: str) -> Config:
     with open(path) as f:
         raw: Any = yaml.safe_load(f) or {}
     return _complete(Config(raw))
+
+
+def load_config_from_yaml(path: str) -> Config:
+    """:func:`load_config` under the reference's name."""
+    return load_config(path)

@@ -35,9 +35,34 @@ class Voxelgrid:
         self.bbox = np.asarray(bbox, dtype=np.float64)
         return self
 
+    @classmethod
+    def create(cls, bbox, resolution: float, init_value=0.0,
+               dtype=np.float32) -> "Voxelgrid":
+        """A grid over ``bbox`` (3, 2) of ``ceil(extent / resolution)``
+        voxels an axis, every voxel ``init_value``."""
+        bbox = np.asarray(bbox, dtype=np.float64)
+        shape = tuple(
+            int(np.ceil((bbox[i, 1] - bbox[i, 0]) / resolution))
+            for i in range(3))
+        grid = cls(resolution)
+        grid.from_array(np.full(shape, init_value, dtype=dtype), bbox)
+        return grid
+
     @property
     def origin(self) -> np.ndarray:
         return self.bbox[:, 0].astype(np.float32)
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return tuple(self.volume.shape)
+
+    def world_to_voxel(self, points: np.ndarray) -> np.ndarray:
+        """World points (..., 3) -> continuous voxel coordinates."""
+        return (np.asarray(points) - self.origin[None, :]) / self.resolution
+
+    def voxel_to_world(self, indices: np.ndarray) -> np.ndarray:
+        """Voxel coordinates (..., 3) -> world points."""
+        return np.asarray(indices) * self.resolution + self.origin[None, :]
 
 
 @dataclasses.dataclass
@@ -49,6 +74,10 @@ class SceneVolume:
     origin: torch.Tensor        # (3,) f32
     resolution: torch.Tensor    # () f32
     init_value: float = 0.1
+
+    @property
+    def shape(self):
+        return self.num.shape
 
     @property
     def tsdf(self) -> torch.Tensor:
@@ -63,6 +92,17 @@ class SceneVolume:
     @property
     def scores(self) -> torch.Tensor:
         return unpack_semantic_key(self.semkey)[0]
+
+    def reset(self, init_value: Optional[float] = None) -> "SceneVolume":
+        """A fresh (all-zero) state of the same geometry and device."""
+        return SceneVolume(
+            num=torch.zeros_like(self.num),
+            weights=torch.zeros_like(self.weights),
+            semkey=torch.zeros_like(self.semkey),
+            origin=self.origin,
+            resolution=self.resolution,
+            init_value=float(self.init_value if init_value is None
+                             else init_value))
 
 
 def init_scene_volume(shape: Tuple[int, int, int], origin, resolution: float,

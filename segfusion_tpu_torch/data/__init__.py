@@ -1,25 +1,23 @@
 """Datasets and host-side streaming.
 
-Port of ``segfusion_tpu/data/__init__.py``. Only the Synthetic dataset is
-ported; Replica and ScanNet wait for ROADMAP Queue 1 #9.
+Port of ``segfusion_tpu/data/__init__.py``: the Replica and ScanNet
+loaders (host-decoded frames from the datasets' own directory layouts)
+and the Synthetic rooms (depth rendered on ``device``).
 """
 
 from .prefetch import PrefetchLoader
+from .replica import Replica
+from .scannet import ScanNet
 from .synthetic import Synthetic
 
-__all__ = ["PrefetchLoader", "Synthetic", "get_data"]
+__all__ = ["PrefetchLoader", "Replica", "ScanNet", "Synthetic", "get_data"]
 
-_DATASETS = {"Synthetic": Synthetic}
-_NOT_PORTED = ("Replica", "ScanNet")
+_DATASETS = {"Replica": Replica, "ScanNet": ScanNet, "Synthetic": Synthetic}
 
 
 def get_data(name: str, config_data, device="cuda"):
     """The dataset ``name`` over ``config_data`` (a DATA section); frames
     that a dataset renders are rendered on ``device``."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {name} is not ported to segfusion_tpu_torch yet "
-            "(ROADMAP Queue 1 #9)")
     if name not in _DATASETS:
         raise NotImplementedError(f"Dataset {name} not implemented "
                                   f"(available: {sorted(_DATASETS)})")

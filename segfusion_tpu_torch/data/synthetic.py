@@ -57,6 +57,15 @@ class SyntheticScene:
                 _sphere_sdf(pts, self.sphere_c, self.sphere_r),
                 _box_sdf(pts, self.box_c, self.box_h))
 
+    def sdf(self, pts: np.ndarray) -> np.ndarray:
+        """The room's SDF at ``pts`` (the nearest part's)."""
+        return self.sdf_and_labels(pts)[0]
+
+    def labels(self, pts: np.ndarray) -> np.ndarray:
+        """The nearest part's label inside the material, 0 in free
+        space."""
+        return self.sdf_and_labels(pts)[1]
+
     def surface_labels(self, pts: np.ndarray) -> np.ndarray:
         """Nearest-part label regardless of sign."""
         stack = np.stack(self._parts(pts), axis=-1)

@@ -2,12 +2,13 @@
 port's modules (the JAX package's ``segfusion_tpu/setup.py``), with the
 model factories the CLIs build from: ``build_adapnet`` (AdapNet++ stage
 1 or 2), ``build_fusion_net`` and ``get_segmenter`` (the pipelines'
-segmenter from a checkpoint). The data augmentations wait for the
-real-data loaders (ROADMAP Queue 1 #9)."""
+segmenter from a checkpoint), and the paired image + mask
+augmentations (``get_composed_augmentations``)."""
 
 from .config import get_data_config  # noqa: F401
 from .core.database import Database
 from .data import get_data  # noqa: F401
+from .data.augmentations import get_composed_augmentations  # noqa: F401
 from .models.adapnet import build_adapnet  # noqa: F401
 from .models.fusionnet import build_fusion_net  # noqa: F401
 from .utils.convert import (  # noqa: F401

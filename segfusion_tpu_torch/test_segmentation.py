@@ -8,8 +8,8 @@ else random weights from seed 0) over the test split, RunningScore's
 metrics (label 0 ignored) and per-class IoU logged, ScanNet-benchmark
 predictions where TESTING.output_benchmark is set and the dataset writes
 them, and for the first TESTING.n_visualizations batches an input | depth
-| gt | estimate strip written as ``output/vis/<i>.png`` (a PNG writer of
-the port's own: the card's machine has no OpenCV). Runs on the card
+| gt | estimate strip written as ``output/vis/<i>.png`` (the port's own
+PNG writer). Runs on the card
 (``--device cuda``, the default) or, where the caller names it, on the
 CPU; callers that build the config in Python call
 :func:`test_segmentation`.

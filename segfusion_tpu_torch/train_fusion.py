@@ -21,8 +21,7 @@ filtered and evaluated, and ``model/best.ckpt`` / ``model/last.ckpt``
 are written in the JAX package's Flax format (last with the optimizer
 state, in optax's layout). Runs on the card (``--device cuda``, the
 default) or, where the caller names it, on the CPU; callers that build
-the config in Python (the card's machine has no PyYAML) call
-:func:`train_fusion`.
+the config in Python call :func:`train_fusion`.
 """
 
 from __future__ import annotations

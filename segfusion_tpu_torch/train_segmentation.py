@@ -19,8 +19,7 @@ validation and ``model/best.ckpt`` (best mean IoU) / ``model/last.ckpt``
 format. The net keeps f32 master weights and computes in
 SEMANTIC_2D_MODEL.compute_dtype. Runs on the card (``--device cuda``,
 the default) or, where the caller names it, on the CPU; callers that
-build the config in Python (the card's machine has no PyYAML) call
-:func:`train_segmentation`.
+build the config in Python call :func:`train_segmentation`.
 """
 
 from __future__ import annotations

@@ -49,7 +49,9 @@ _PROBE = textwrap.dedent("""
                 "utils.torch_convert", "convert_checkpoint",
                 "utils.rasterize", "utils.simplify", "utils.meshio",
                 "preprocess", "preprocess.common", "preprocess.scale",
-                "preprocess.fuse", "preprocess.simplify"):
+                "preprocess.fuse", "preprocess.simplify", "data.replica",
+                "data.scannet", "data.transforms", "data.augmentations",
+                "utils.mapping", "setup"):
         assert "segfusion_tpu_torch." + new in names, new
     leaked = sorted(m for m in sys.modules if refused(m))
     assert not leaked, leaked

@@ -31,6 +31,7 @@ from tests.test_torch_nets import one_torch_thread  # noqa: F401 (a fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG_SEM = os.path.join(ROOT, "configs", "fusion", "synthetic_semantic.yaml")
+CFG_REPLICA = os.path.join(ROOT, "configs", "fusion", "replica_accuracy.yaml")
 
 
 def _port_config(tmp_path, **testing):
@@ -111,22 +112,86 @@ def test_entry_point_per_frame_matches_jax(tmp_path, monkeypatch,
         assert "fused 10 frames\n" in f.read()
 
 
-# the ids the cases had while the two checkpoint paths and per-frame
-# fusion were refused too (test_entry_point_loads_checkpoints and
-# test_entry_point_per_frame_matches_jax now)
+def write_semantic_sdf(root: str, seed: int, voxel: float):
+    """Replica's ``<root>/room_<seed>/gt_semantic_sdf/semantic_sdf.hdf``
+    for the Synthetic room ``seed``: ``sdf`` (2, X, Y, Z), the room's SDF
+    and its surface parts as class30 ids over [-half, half]^3 at ``voxel``
+    metres, with ``voxel_size`` and ``bbox`` attributes."""
+    import h5py
+    from chip_smoke import REPLICA_OF_PART
+    from segfusion_tpu_torch.data.synthetic import SyntheticScene
+
+    scene = SyntheticScene(seed)
+    n = int(round(2 * scene.half / voxel))
+    ax = -scene.half + np.arange(n) * voxel
+    pts = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), axis=-1)
+    data = np.stack([scene.sdf(pts),
+                     REPLICA_OF_PART[scene.surface_labels(pts)]])
+    path = os.path.join(root, f"room_{seed}", "gt_semantic_sdf")
+    os.makedirs(path)
+    with h5py.File(os.path.join(path, "semantic_sdf.hdf"), "w") as f:
+        f.create_dataset("sdf", data=data.astype(np.float32))
+        f.attrs["voxel_size"] = voxel
+        f.attrs["bbox"] = np.array([[-scene.half, scene.half]] * 3)
+
+
+def test_entry_point_on_replica_matches_jax(tmp_path, jax_mcubes_private):
+    """Both entry points on one Replica tree at the dataset's layout
+    (chip_smoke's writer: a Synthetic room, 8 frames of 16x16; its
+    semantic sdf hdf at 5 cm), on configs/fusion/replica_accuracy.yaml
+    with gt labels and f32 nets (as above), both nets from the JAX
+    entry point's draw. The bounds of test_entry_point_matches_jax."""
+    import test_fusion as jax_entry
+    from chip_smoke import write_replica_tree
+
+    root = str(tmp_path / "replica")
+    lst, _ = write_replica_tree(root, (0,), 8, 16, "cpu", 0.1)
+    write_semantic_sdf(root, 0, 0.05)
+
+    def configure(cfg, path):
+        cfg.SETTINGS.experiment_path = path
+        cfg.FUSION_MODEL.compute_dtype = "float32"
+        cfg.TESTING.update(fusion_model_path=None)
+        cfg.DATA.update(root_dir=root, test_scene_list=lst, resx=16,
+                        resy=16, semantic_strategy="gt")
+        return cfg
+
+    want = jax_entry.test_fusion(configure(load_config(CFG_REPLICA),
+                                           str(tmp_path / "jax")))
+    params, stats = JPipeline(configure(load_config(CFG_REPLICA), "")
+                              ).init_fusion_params(jax.random.PRNGKey(0),
+                                                   16, 16)
+    cfg = configure(Config(load_config(CFG_REPLICA)), str(tmp_path / "port"))
+    got = port_entry.test_fusion(
+        cfg, device="cpu", fusion_net=fusionnet_from_flax(params, stats,
+                                                          cfg.FUSION_MODEL))
+    assert set(got) == set(want)
+    for k in ("mse", "mad", "iou", "acc"):
+        assert abs(got[k] - want[k]) <= 1e-4, (k, got[k], want[k])
+    assert got["sem_Mean Acc"] == want["sem_Mean Acc"]
+    assert got["sem_Mean IoU"] == want["sem_Mean IoU"]
+    for k in ("mesh_fscore", "mesh_precision", "mesh_recall"):
+        assert abs(got[k] - want[k]) <= 0.01, (k, got[k], want[k])
+    assert all(np.isfinite(v) for v in got.values())
+    assert got["iou"] > 0.2 and got["sem_Mean Acc"] > 0.5
+
+
+# the ids the cases had while the two checkpoint paths, per-frame fusion
+# and the real datasets were refused too
 @pytest.mark.parametrize("testing,data,error", [
     pytest.param({}, {"semantic_strategy": "predict"}, ValueError,
                  id="testing2-data2-ValueError"),
-    pytest.param({}, {"dataset": "Replica"}, NotImplementedError,
+    pytest.param({}, {"dataset": "NYUv2"}, NotImplementedError,
                  id="testing4-data4-NotImplementedError"),
 ])
 def test_entry_point_refuses_what_is_not_ported(tmp_path, testing, data,
                                                 error):
-    """The real datasets are a later slice, and a predicting segmenter
-    needs its checkpoint: each raises before any frame is fused."""
+    """A dataset the port does not have (nor the JAX package), and a
+    predicting segmenter without its checkpoint: each raises before any
+    frame is fused."""
     cfg = _port_config(tmp_path, **testing)
     cfg.DATA.update(data)
-    with pytest.raises(error, match="ROADMAP|semantic_2d_model_path"):
+    with pytest.raises(error, match="not implemented|semantic_2d_model_path"):
         port_entry.test_fusion(cfg, device="cpu")
 
 
