@@ -48,8 +48,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 4b. the evaluation of that fused 448^3 volume through the port's Database
    (gt: the same synthetic room sampled at 1 cm): ``filter``,
    ``filter_semantics`` (one K5 launch), ``evaluate``,
-   ``evaluate_semantics``, ``evaluate_fscore``, ``get_mesh`` and a ply
-   ``save``, each timed;
+   ``evaluate_semantics``, ``evaluate_fscore``, ``get_mesh`` and a
+   ``save`` in "test" mode (hdf5 volumes and the two ply meshes), each
+   timed;
 5. the exact recurrence (frame_block 1, every frame's semantics, f32 geo,
    dirty-shadow carry off, so the full shadow build runs);
 6. the same small stream (64^3, 32x32, f32 nets, TF32 off) on the card and
@@ -144,25 +145,41 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    d. a reference-named v3 ``.pth.tar`` through ``convert_checkpoint``
       (and ``python -m``), then ``test_fusion`` from it (K1/K3/K4/K5);
    e. ``python -m segfusion_tpu_torch.preprocess.{scale,fuse,simplify}``
-      on one closed mesh (fuse at the tool's defaults, on the card);
+      on one closed mesh (fuse at the tool's defaults, on the card, with
+      ``--save_sdf``: its gzip hdf5 read back bit-exact against the same
+      fusion in this process);
    f. ``trace`` around a headline block, ``nan_guard`` on a NaN;
 17. the real-data loaders on their datasets' own layouts, written from
    Synthetic rooms (depth rendered on the card) and loaded with the
    configs' YAML files:
-   a. the host libraries (cv2 and PIL imported; the machine has no
-      h5py, so the Replica runs that read the gt grid, ``test_fusion``
-      and ``train_fusion`` on replica_accuracy.yaml, are not run);
+   a. the host libraries (cv2 and PIL; every hdf5 file through the
+      port's own codec, ``utils/hdf5.py``);
+   a'. each Replica room's gt grid, ``gt_semantic_sdf/semantic_sdf.hdf``
+      (2 x 400^3 f32 at 1 cm, 512 MB), written through the port's writer
+      and read back bit-exact; one gzip-chunked copy (as
+      ``preprocess.fuse`` writes) the same; seconds and MB/s;
    b. a Replica tree (2 rooms x 32 frames of 512x512, raw camera
       matrices) through the port's ``Replica`` at replica_accuracy.yaml's
       256x256: poses within 1e-5, gt depth to the millimetre, the two
       rooms interleaved frame by frame; host ms a frame;
+   d. ``train_fusion`` on replica_accuracy.yaml (v3 gf 6 with the
+      semantic head, AdapNet++ stage 2 predicting 30 classes, bf16 nets,
+      f16packed gathers, rmsprop with accumulation 8, ``save_mode:
+      test``) over room 0's 32 frames into its gt grid (404^3 after the
+      pad), validating on room 1: training frames/s, the validation's
+      seconds, the gzip-9 hdf5 saves' seconds, peak memory, K1-K4; every
+      ``.hf5`` read back bit-exact;
+   c. ``test_fusion`` on replica_accuracy.yaml over room 1's 32 frames
+      from 17d's best.ckpt into the gt grid: stage seconds, metrics,
+      the saved volumes read back bit-exact, K1/K3/K4/K5;
    e. ``train_segmentation`` on replica_multi.yaml (stage 2, RGB + ToF,
       batch 8, bf16) for one epoch over the tree from seeded stage-1
       checkpoints, then ``test_segmentation`` on its best.ckpt;
    f. a raw ScanNet scan (32 frames of 640x480, a ply, no hdf):
       ``test_fusion`` on scannet.yaml over ``create_grid``'s 401^3 grid
       at 1 cm (seeded v3 gf 6 and 21-class stage-2 checkpoints at the
-      config's paths; K1/K3/K4/K5), each stage and the loader timed; then
+      config's paths; ``save_mode: test``, the volumes read back
+      bit-exact; K1/K3/K4/K5), each stage and the loader timed; then
       ``test_segmentation`` on scannet_multi.yaml writing one benchmark
       PNG a frame;
    g. every augmentation key on a 256x256 pair;
@@ -172,7 +189,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 
 Launch counts are reset just before each main-path run (3c's probe
 mains, 4, 4b, 5, 8, 9, the trainer of 10, 11c, 14's runs, 15b, c and e,
-16b, c and d, 17f's ``test_fusion`` and 18) and read just after; the
+16b, c and d, 17d's ``train_fusion``, 17c's and 17f's ``test_fusion``
+and 18) and read just after; the
 kernel checks' launches are not counted.
 
 Then one JSON line of per-kernel results, the card line again, and last
@@ -204,7 +222,7 @@ from segfusion_tpu_torch.core import tsdf_volume as ctv
 from segfusion_tpu_torch.core.database import Database
 from segfusion_tpu_torch.core.pipeline import Pipeline
 from segfusion_tpu_torch.core.volume import Voxelgrid, init_scene_volume
-from segfusion_tpu_torch.data import ScanNet, get_data
+from segfusion_tpu_torch.data import Replica, ScanNet, get_data
 from segfusion_tpu_torch.data.augmentations import get_composed_augmentations
 from segfusion_tpu_torch.data.replica import raw_camera_matrix
 from segfusion_tpu_torch.data.synthetic import Synthetic, SyntheticScene
@@ -245,13 +263,15 @@ from segfusion_tpu_torch.probes import (dynamic_gather, pallas_caps,
                                         pallas_caps2, pallas_caps3,
                                         random_access, shadow_debug,
                                         shadow_variants)
-from segfusion_tpu_torch.utils import torch_convert
+from segfusion_tpu_torch.utils import hdf5, torch_convert
 from segfusion_tpu_torch.utils.checkpoints import save_checkpoint
 from segfusion_tpu_torch.utils.convert import (fusionnet_from_checkpoint,
                                                to_flax)
 from segfusion_tpu_torch.utils.mesh import MCUBES_SOURCE, marching_cubes
 from segfusion_tpu_torch.utils.meshio import read_off, write_off, write_ply
 from segfusion_tpu_torch.utils.rasterize import RASTERIZE_SOURCE
+from segfusion_tpu_torch.preprocess.common import load_mesh
+from segfusion_tpu_torch.preprocess.fuse import fuse_mesh
 from segfusion_tpu_torch.utils.simplify import (SIMPLIFY_SOURCE,
                                                 simplify_quadric)
 from segfusion_tpu_torch.utils.tracing import nan_guard, trace
@@ -1294,8 +1314,7 @@ def run_stages(db, s, out_dir):
         ("evaluate_semantics", lambda: db.evaluate_semantics("test")[0]),
         ("evaluate_fscore", lambda: db.evaluate_fscore(0.05)[0]),
         ("get_mesh(semantics=True)", lambda: db.get_mesh(s, True)),
-        # ply: the card's machine has no h5py for the hdf5 volumes
-        ("save(ply)", lambda: db.save(out_dir, "ply", s)),
+        ("save(test)", lambda: db.save(out_dir, "test", s)),
     ]
     metrics, mesh = {}, None
     for name, fn in stages:
@@ -1309,7 +1328,10 @@ def run_stages(db, s, out_dir):
             mesh = r
         log(f"  {name:26s} {dt:.3f} s" + (f"  {r}" if isinstance(r, dict)
                                           else ""))
-    return metrics, mesh, read_counts()
+    counts = read_counts()
+    log(f"  hdf5 volumes read back bit-exact: "
+        f"{read_back(db, s, saved_name(out_dir, s))}")
+    return metrics, mesh, counts
 
 
 def small_reference(dev):
@@ -1374,10 +1396,9 @@ def fuse_many_run(dev):
 
 def entry_point(dev):
     """``segfusion_tpu_torch.test_fusion`` with the configuration of
-    configs/fusion/synthetic_tpu_demo_joint.yaml, cut to 16 frames; hdf5
-    saving replaced by ply (the card's machine has no h5py)."""
+    configs/fusion/synthetic_tpu_demo_joint.yaml, cut to 16 frames."""
     cfg = default_config()
-    cfg.SETTINGS.update(save_mode="ply", num_workers=0)
+    cfg.SETTINGS.update(save_mode="test", num_workers=0)
     cfg.FUSION_MODEL.update(name="v3", n_points=9, n_tail_points=7,
                             growth_factor=6, use_semantics=True,
                             compute_dtype="bfloat16")
@@ -1639,10 +1660,10 @@ def training_reference(dev):
 
 def synthetic_small_config(path: str):
     """configs/fusion/synthetic_small.yaml built in Python, cut to 8
-    frames; ply saves only (the card's machine has no h5py)."""
+    frames."""
     return Config({
         "SETTINGS": {"num_workers": 0, "experiment_path": path,
-                     "save_mode": "ply", "eval_freq": 16, "log_freq": 8,
+                     "save_mode": "test", "eval_freq": 16, "log_freq": 8,
                      "seed": 1911},
         "FUSION_MODEL": {"name": "v3", "output_scale": 1.0, "n_points": 5,
                          "n_tail_points": 4, "growth_factor": 2,
@@ -1829,7 +1850,7 @@ def predict_entry_point(dev, seg_ckpt: str):
     reference's train-then-fuse workflow), on phase 8's configuration
     with 30 classes; returns the launch counts."""
     cfg = default_config()
-    cfg.SETTINGS.update(save_mode="ply", num_workers=0)
+    cfg.SETTINGS.update(save_mode="test", num_workers=0)
     cfg.FUSION_MODEL.update(name="v3", n_points=9, n_tail_points=7,
                             growth_factor=6, use_semantics=True,
                             compute_dtype="bfloat16")
@@ -2241,9 +2262,10 @@ def flat_train_entry_point(dev):
 
 def demo_joint_config(path: str):
     """configs/fusion/synthetic_tpu_demo_joint.yaml built in Python, cut
-    to 16 frames; ply saves only (phase 8's configuration)."""
+    to 16 frames (phase 8's configuration)."""
     cfg = default_config()
-    cfg.SETTINGS.update(save_mode="ply", num_workers=0, experiment_path=path)
+    cfg.SETTINGS.update(save_mode="test", num_workers=0,
+                        experiment_path=path)
     cfg.FUSION_MODEL.update(name="v3", n_points=9, n_tail_points=7,
                             growth_factor=6, use_semantics=True,
                             compute_dtype="bfloat16")
@@ -3438,7 +3460,9 @@ def preprocessing(dev):
     """Phase 16e: one closed mesh (a sphere of radius 1.3 at (2, -1, 0.5),
     marching cubes of its SDF on 48^3) through ``python -m
     segfusion_tpu_torch.preprocess.scale`` -> ``fuse`` (the tool's
-    defaults: 100 views, 256^3, 640x640, the TSDF fusion on the card) ->
+    defaults: 100 views, 256^3, 640x640, the TSDF fusion on the card;
+    ``--save_sdf``, whose gzip hdf5 the port's reader reads back
+    bit-exact against the same fusion in this process) ->
     ``simplify --method cluster --cluster 0.01`` (the tool's quadric
     default on the 256^3 mesh is a host cost of minutes: 151.4 s beside
     an H100), each step timed; the QEM decimator in this process on
@@ -3462,7 +3486,7 @@ def preprocessing(dev):
         write_off(os.path.join(dirs["raw"], "ball.off"), v, f)
         for step, src, dst, extra in (
                 ("scale", "raw", "scaled", []),
-                ("fuse", "scaled", "fused", []),
+                ("fuse", "scaled", "fused", ["--save_sdf"]),
                 ("simplify", "fused", "simple",
                  ["--method", "cluster", "--cluster", "0.01"])):
             t0 = time.perf_counter()
@@ -3477,6 +3501,20 @@ def preprocessing(dev):
                                    f"{proc.stderr[-2000:]}")
         meshes = {k: read_off(os.path.join(dirs[k], "ball.off"))
                   for k in ("scaled", "fused", "simple")}
+        t0 = time.perf_counter()
+        with hdf5.File(os.path.join(dirs["fused"], "ball_sdf.hdf")) as fh:
+            sdf_file, attrs = fh["sdf"], dict(fh.attrs)
+        seconds["read ball_sdf.hdf"] = round(time.perf_counter() - t0, 3)
+        tsdf, _, origin, voxel = fuse_mesh(
+            *load_mesh(os.path.join(dirs["scaled"], "ball.off")),
+            device=dev)
+    bbox = np.stack([origin, origin + voxel * 256], axis=1)
+    log(f"16e fuse --save_sdf: {sdf_file.shape} {sdf_file.dtype} read "
+        f"through the port's reader, attributes {attrs}")
+    if not (same_bits(sdf_file, tsdf[None]) and attrs["voxel_size"] == voxel
+            and np.array_equal(attrs["bbox"], bbox)):
+        raise RuntimeError("16e: fuse --save_sdf's hdf5 differs from the "
+                           "fusion in this process")
     t0 = time.perf_counter()
     qv, qf = simplify_quadric(v, f, 5000)
     seconds["quadric in process"] = round(time.perf_counter() - t0, 3)
@@ -3591,17 +3629,152 @@ def room_views(scene, poses, intrinsics, h: int, w: int, dev, fine: float):
     return depth, np.where(depth > 0, parts, 0)
 
 
+def room_gt_grid(scene, voxel: float, dev) -> np.ndarray:
+    """Replica's gt grid of the Synthetic room ``scene``: (2, n, n, n)
+    f32, the room's SDF and its surface parts as class30 ids
+    (REPLICA_OF_PART) at ``voxel`` metres over [-half, half]^3 (as
+    tests/test_torch_test_fusion.py's ``write_semantic_sdf`` samples
+    ``scene.sdf`` and ``scene.surface_labels``), the three parts'
+    distances computed on ``dev`` in float64, x-slab by x-slab."""
+    n = int(round(2 * scene.half / voxel))
+    f64 = dict(dtype=torch.float64, device=dev)
+    ax = -scene.half + torch.arange(n, **f64) * voxel
+    ids = torch.as_tensor(REPLICA_OF_PART.astype(np.float32), device=dev)
+    sphere_c, box_c, box_h = (torch.as_tensor(v, **f64) for v in (
+        scene.sphere_c, scene.box_c, scene.box_h))
+    grid = torch.empty((2, n, n, n), dtype=torch.float32, device=dev)
+
+    def box(q):
+        return (q.clamp_min(0).norm(dim=-1)
+                + q.amax(dim=-1).clamp_max(0))
+
+    for x0 in range(0, n, 40):
+        pts = torch.stack(torch.meshgrid(ax[x0:x0 + 40], ax, ax,
+                                         indexing="ij"), dim=-1)
+        parts = torch.stack([
+            -box(pts.abs() - scene.half),                          # walls
+            (pts - sphere_c).norm(dim=-1) - scene.sphere_r,
+            box((pts - box_c).abs() - box_h)], dim=-1)
+        sdf, nearest = parts.min(dim=-1)
+        grid[0, x0:x0 + 40] = sdf.float()
+        grid[1, x0:x0 + 40] = ids[nearest + 1]
+    return grid.cpu().numpy()
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.ascontiguousarray(a).tobytes()
+            == np.ascontiguousarray(b).tobytes())
+
+
+def write_gt_grid(path: str, grid: np.ndarray, scene, voxel: float,
+                  **compression) -> dict:
+    """The gt grid ``grid`` of ``scene`` (``room_gt_grid``) written at
+    ``path`` as Replica's semantic sdf hdf (dataset ``sdf``, attributes
+    ``voxel_size`` and ``bbox``) through the port's writer, contiguous
+    unless ``compression`` names gzip, then read back through its reader
+    and required bit-exact. Returns the sizes, seconds and MB/s."""
+    bbox = np.array([[-scene.half, scene.half]] * 3)
+    t1 = time.perf_counter()
+    with hdf5.File(path, "w") as f:
+        f.create_dataset("sdf", data=grid, **compression)
+        f.attrs["voxel_size"] = voxel
+        f.attrs["bbox"] = bbox
+    t2 = time.perf_counter()
+    with hdf5.File(path, "r") as f:
+        back = f["sdf"]
+        attrs = dict(f.attrs)
+    t3 = time.perf_counter()
+    if not (same_bits(back, grid) and attrs["voxel_size"] == voxel
+            and np.array_equal(attrs["bbox"], bbox)):
+        raise RuntimeError(f"{path}: the gt grid read back differs")
+    mb = grid.nbytes / 2 ** 20
+    return {"shape": grid.shape, "MB": round(mb, 1),
+            "file MB": round(os.path.getsize(path) / 2 ** 20, 1),
+            "write s": round(t2 - t1, 3),
+            "write MB/s": round(mb / (t2 - t1), 1),
+            "read s": round(t3 - t2, 3), "read MB/s": round(mb / (t3 - t2),
+                                                            1)}
+
+
+def read_back(db, scene: str, name_of) -> list:
+    """Each hdf5 volume that a "tsdf" / "test" save of ``db``'s
+    ``scene`` wrote (``name_of(plane)`` its path) read through the
+    port's reader and required bit-exact to the Database's cropped
+    volume; [(file, shape, dtype, read seconds)]."""
+    vol, out = db.volumes[scene], []
+    planes = [("TSDF", "tsdf"), ("weights", "weights")] + (
+        [("semantics", "semantics")] if db.semantics else [])
+    for key, plane in planes:
+        path = name_of(plane)
+        t0 = time.perf_counter()
+        with hdf5.File(path, "r") as f:
+            got = f[key]
+        dt = time.perf_counter() - t0
+        if not same_bits(got, db._crop(getattr(vol, plane), scene)):
+            raise RuntimeError(f"{path}: {key} read back differs from the "
+                               "Database's volume")
+        out.append((os.path.basename(path), got.shape, str(got.dtype),
+                    round(dt, 3)))
+    return out
+
+
+def saved_name(path: str, scene: str):
+    """``Database.save``'s hdf5 file of a plane."""
+    base = scene.replace("/", ".")
+    return lambda plane: os.path.join(path, f"{base}.{plane}.hf5")
+
+
+@contextlib.contextmanager
+def hdf5_saves_checked():
+    """Within the block, each ``Database.save`` and
+    ``save_to_workspace`` in "tsdf" / "test" mode is followed by
+    ``read_back`` of every ``.hf5`` it wrote (outside the save's own
+    time where the save is timed by ``stage_seconds``); yields the list
+    of (file, shape, dtype, read seconds)."""
+    checked = []
+    originals = {name: getattr(Database, name)
+                 for name in ("save", "save_to_workspace")}
+
+    def save(self, path, save_mode="ply", scene_id=None):
+        originals["save"](self, path, save_mode, scene_id)
+        if save_mode in ("tsdf", "test"):
+            checked.extend(read_back(self, scene_id,
+                                     saved_name(path, scene_id)))
+
+    def save_to_workspace(self, workspace, mode, save_mode="ply"):
+        originals["save_to_workspace"](self, workspace, mode, save_mode)
+        if save_mode in ("tsdf", "test"):
+            for s in self.scenes:
+                if self.state[s]:
+                    base = s.replace("/", ".")
+                    checked.extend(read_back(self, s, lambda plane: (
+                        os.path.join(workspace.output_path, f"{base}."
+                                     f"{plane.replace('semantics', 'semantic')}"
+                                     f"_{mode}.hf5"))))
+
+    Database.save, Database.save_to_workspace = save, save_to_workspace
+    try:
+        yield checked
+    finally:
+        for name, fn in originals.items():
+            setattr(Database, name, fn)
+
+
 def write_replica_tree(root: str, seeds, n_frames: int, res: int, dev,
-                       fine: float):
+                       fine: float, gt_voxel: Optional[float] = None):
     """A Replica tree under ``root`` from Synthetic rooms: for each seed a
     scene ``room_<seed>`` with one trajectory ``1`` of ``n_frames`` res x
     res frames: ``left_rgb`` (seeded colour), ``left_depth_gt`` (uint16
     mm), ``left_depth_noise_5.0`` (the same with seeded 5 mm noise),
     ``left_class30`` (REPLICA_OF_PART) and ``left_camera_matrix`` (each
-    pose in Replica's raw convention, ``raw_camera_matrix``), but no gt
-    sdf hdf (the card's machine has no h5py); and the scene list
-    ``list.txt`` in lists/replica's line format. Returns (the list's
-    path, {scene: (poses, depth mm)})."""
+    pose in Replica's raw convention, ``raw_camera_matrix``); where
+    ``gt_voxel`` is given, the room's gt grid at that voxel size
+    (``room_gt_grid``), ``gt_semantic_sdf/semantic_sdf.hdf``, through the
+    port's writer (``write_gt_grid``); and the scene list ``list.txt`` in
+    lists/replica's line format. Returns (the list's path, {scene:
+    (poses, depth mm, the gt grid's sampling seconds and
+    ``write_gt_grid``'s record, or None)})."""
     import cv2
     rng = np.random.RandomState(17)
     f = res / 2.0                       # hfov 90
@@ -3631,7 +3804,17 @@ def write_replica_tree(root: str, seeds, n_frames: int, res: int, dev,
             cv2.imwrite(out("left_class30"), REPLICA_OF_PART[parts[i]])
             np.savetxt(out("left_camera_matrix", ".txt"),
                        raw_camera_matrix(poses[i]))
-        truth[name] = (poses, mm)
+        gt = None
+        if gt_voxel is not None:
+            sdf_dir = os.path.join(root, name, "gt_semantic_sdf")
+            os.makedirs(sdf_dir, exist_ok=True)
+            t0 = time.perf_counter()
+            grid = room_gt_grid(scene, gt_voxel, dev)
+            gt = {"sample s": round(time.perf_counter() - t0, 3)}
+            gt.update(write_gt_grid(
+                os.path.join(sdf_dir, "semantic_sdf.hdf"), grid, scene,
+                gt_voxel))
+        truth[name] = (poses, mm, gt)
         lines.append(" ".join(f"{name}/1/{d}" for d in REPLICA_DIRS))
     path = os.path.join(root, "list.txt")
     with open(path, "w") as fh:
@@ -3697,11 +3880,12 @@ def write_scannet_tree(root: str, seed: int, n_frames: int, dev,
 
 
 @contextlib.contextmanager
-def stage_seconds(targets):
+def stage_seconds(targets, starts: Optional[dict] = None):
     """Within the block, each ``(owner, name)`` method is wrapped to add
     its host seconds to the yielded dict under ``"Owner.name"``; a method
     ``synced`` also waits for the card before its clock stops (the loader's
-    ``__getitem__``, which runs in the prefetch thread, does not)."""
+    ``__getitem__``, which runs in the prefetch thread, does not). The
+    clock of each method's first call goes into ``starts``, where given."""
     secs, saved = {}, []
     for owner, name, synced in targets:
         fn = getattr(owner, name)
@@ -3709,6 +3893,8 @@ def stage_seconds(targets):
         def timed(*args, _fn=fn, _key=f"{owner.__name__}.{name}",
                   _sync=synced, **kwargs):
             t0 = time.perf_counter()
+            if starts is not None:
+                starts.setdefault(_key, t0)
             try:
                 return _fn(*args, **kwargs)
             finally:
@@ -3735,15 +3921,30 @@ def seeded_checkpoint(net, path: str, seed: int):
 
 
 def replica_loader(dev, root: str, frames: int = 32, res: int = 512):
-    """Phase 17b: the Replica tree (2 rooms x 32 frames of 512x512) and
-    the port's loader on replica_accuracy.yaml (256x256, tof_depth,
-    max_depth_diversity): every pose within 1e-5, every gt depth to the
-    millimetre of the nearest resize of what was written, labels and
-    mask; host ms a frame. Returns the scene list."""
+    """Phases 17a' and 17b: the Replica tree (2 rooms x 32 frames of
+    512x512, each room's gt grid at 1 cm through the port's writer, read
+    back bit-exact; then one gzip-chunked copy of room 0's, as
+    ``preprocess.fuse`` writes its sdf) and the port's loader on
+    replica_accuracy.yaml (256x256, tof_depth, max_depth_diversity):
+    every pose within 1e-5, every gt depth to the millimetre of the
+    nearest resize of what was written, labels and mask; host ms a
+    frame. Returns the scene list."""
     import cv2
     t0 = time.perf_counter()
-    lst, truth = write_replica_tree(root, (0, 1), frames, res, dev, 0.025)
+    lst, truth = write_replica_tree(root, (0, 1), frames, res, dev, 0.025,
+                                    gt_voxel=0.01)
     t_tree = time.perf_counter() - t0
+    for name, (_, _, gt) in truth.items():
+        log(f"17a' {name} gt grid (sampled on {dev}), the port's writer "
+            f"and reader (contiguous): {json.dumps(gt)}")
+    scene = SyntheticScene(0)
+    grid = room_gt_grid(scene, 0.01, dev)
+    gz = write_gt_grid(os.path.join(root, "room_0_gzip.hdf"), grid, scene,
+                       0.01, compression="gzip")
+    log(f"17a' room_0 gt grid, gzip-chunked (level 4, the chunk shape "
+        f"{hdf5.guess_chunk(grid.shape, 4)}): {json.dumps(gz)}")
+    del grid
+    os.remove(os.path.join(root, "room_0_gzip.hdf"))
     cfg = load_config(REPLICA_FUSION)
     cfg.DATA.update(root_dir=root, test_scene_list=lst)
     ds = get_data("Replica", get_data_config(cfg, "test"), dev)
@@ -3754,7 +3955,7 @@ def replica_loader(dev, root: str, frames: int = 32, res: int = 512):
     pose_err = depth_err = 0.0
     for s in samples:
         scene, _, i = s["frame_id"].split("/")
-        poses, mm = truth[scene]
+        poses, mm, _ = truth[scene]
         pose_err = max(pose_err, float(np.abs(
             s["extrinsics"] - poses[int(i)]).max()))
         want = cv2.resize(mm[int(i)], (256, 256),
@@ -3769,7 +3970,8 @@ def replica_loader(dev, root: str, frames: int = 32, res: int = 512):
             raise RuntimeError(f"Replica frame {s['frame_id']}: image, "
                                "labels or mask wrong")
     log(f"17b Replica tree (2 rooms x {frames} frames, {res}x{res}, depth "
-        f"rendered on {dev}): written in {t_tree:.2f} s; the loader at "
+        f"rendered on {dev}, the gt grids): written in {t_tree:.2f} s; the "
+        f"loader at "
         f"256x256: {len(samples)} frames, {ms:.3f} ms a frame on the host "
         f"(decode + "
         f"nearest resize + normalise); largest pose error {pose_err:.3g}, "
@@ -3831,13 +4033,155 @@ def replica_segmentation(dev, root: str, lst: str, frames: int = 64):
         raise RuntimeError("17e test_segmentation: strips or metrics")
 
 
+def room_lists(root: str, lst: str):
+    """One scene list a room of the tree's list: [room_0's, room_1's]."""
+    with open(lst) as fh:
+        lines = [ln for ln in fh.read().splitlines() if ln.strip()]
+    paths = []
+    for line in lines:
+        path = os.path.join(root, line.split("/", 1)[0] + ".txt")
+        with open(path, "w") as fh:
+            fh.write(line + "\n")
+        paths.append(path)
+    return paths
+
+
+def replica_fusion_config(root: str, path: str, seg_ckpt: str):
+    """replica_accuracy.yaml as written (v3 gf 6 with the semantic head,
+    AdapNet++ stage 2 predicting 30 classes, bf16 nets, f16packed
+    gathers, rmsprop, accumulation 8, ``save_mode: test``, 256x256 from
+    the 512x512 files), on the tree under ``root`` with the workspace at
+    ``path`` and the seeded stage-2 checkpoint ``seg_ckpt``; one epoch,
+    the loss logged at every update (8 frames)."""
+    cfg = load_config(REPLICA_FUSION)
+    cfg.SETTINGS.update(experiment_path=path, log_freq=8)
+    cfg.TRAINING.n_epochs = 1
+    cfg.TESTING.semantic_2d_model_path = seg_ckpt
+    cfg.DATA.root_dir = root
+    return cfg
+
+
+def replica_train(dev, root: str, lists, seg_ckpt: str, frames: int = 32):
+    """Phase 17d: ``train_fusion`` on replica_accuracy.yaml over room 0's
+    ``frames`` (one epoch: frames / 8 updates) into its gt grid (400^3
+    at 1 cm, 404^3 after the pad), validating on room 1's; the stage
+    seconds, training frames/s (from the first training chunk to the
+    first evaluation), the validation's seconds (``fuse_many`` to the
+    first save), the gzip-9 saves' seconds and MB/s, peak memory and
+    launch counts; every ``.hf5`` read back bit-exact. Returns
+    (best.ckpt's path, the launch counts)."""
+    from segfusion_tpu_torch.utils.workspace import Workspace
+    cfg = replica_fusion_config(root, os.path.join(root, "replica_train"),
+                                seg_ckpt)
+    cfg.DATA.update(train_scene_list=lists[0], val_scene_list=lists[1])
+    stages = [(Replica, "get_grid", False),
+              (Pipeline, "train_sequence_rows", True),
+              (Pipeline, "fuse_many", True)] + [
+        (Database, name, True) for name in (
+            "__init__", "filter", "evaluate", "save_to_workspace")] + [
+        (Workspace, "_save_h5", False)]
+    starts = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    with stage_seconds(stages, starts) as stage, \
+            hdf5_saves_checked() as checked:
+        t0 = time.perf_counter()
+        net, ws = train_fusion(cfg, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    train_s = starts["Database.evaluate"] - starts[
+        "Pipeline.train_sequence_rows"]
+    val_s = starts["Database.save_to_workspace"] - starts[
+        "Pipeline.fuse_many"]
+    h5_mb = sum(np.prod(shape) * np.dtype(dt).itemsize
+                for _, shape, dt, _ in checked) / 2 ** 20
+    with open(os.path.join(ws.log_path, "train.log")) as fh:
+        losses = [float(ln.rsplit("loss", 1)[1]) for ln in fh
+                  if ": loss " in ln]
+    files = sorted(os.listdir(ws.model_path))
+    shape = checked[0][1] if checked else None
+    log(f"17d train_fusion (replica_accuracy.yaml: v3 gf 6 + semantic "
+        f"head, stage 2 predicting 30 classes, bf16, f16packed, rmsprop, "
+        f"accumulation 8, save_mode test; {frames} frames of room_0 at "
+        f"{cfg.DATA.resx}x{cfg.DATA.resy} into the gt grid, validation on "
+        f"room_1 into {shape} at 1 cm): "
+        f"{secs:.3f} s in all; training {frames / train_s:.2f} frames/s, "
+        f"first update included ({train_s:.3f} s); validation "
+        f"{val_s:.3f} s; gzip-9 hdf5 saves {stage['Workspace._save_h5']:.3f}"
+        f" s for {len(checked)} volumes of {h5_mb:.1f} MB "
+        f"({h5_mb / stage['Workspace._save_h5']:.1f} MB/s); peak device "
+        f"memory {peak:.2f} GiB; stages "
+        f"{json.dumps({k: round(v, 3) for k, v in stage.items()})}; "
+        f"losses {losses}; wrote {files}; launches {counts}")
+    log(f"  hdf5 volumes read back bit-exact: {checked}")
+    if not (len(losses) == frames // 8 and all(np.isfinite(losses))):
+        raise RuntimeError(f"17d: losses {losses}")
+    if files != ["best.ckpt", "last.ckpt"] or len(checked) != 6:
+        raise RuntimeError(f"17d: wrote {files}, {len(checked)} volumes")
+    require(counts, ["build_shadow_dirty", "reconcile_slot",
+                     "reconcile_key"], "17d train_fusion")
+    del net
+    return os.path.join(ws.model_path, "best.ckpt"), counts
+
+
+def replica_test(dev, root: str, lists, seg_ckpt: str, fusion_ckpt: str,
+                 frames: int = 32):
+    """Phase 17c: ``test_fusion`` on replica_accuracy.yaml over room 1's
+    ``frames`` from 17d's best.ckpt into its gt grid: each stage and the
+    loader timed, the metrics (finite; no quality bound after four
+    updates), the ``save_mode: test`` volumes read back bit-exact;
+    returns the launch counts."""
+    cfg = replica_fusion_config(root, os.path.join(root, "replica_test"),
+                                seg_ckpt)
+    cfg.TESTING.fusion_model_path = fusion_ckpt
+    cfg.DATA.test_scene_list = lists[1]
+    stages = [(Replica, "__getitem__", False)] + [
+        (Database, name, True) for name in (
+            "__init__", "filter", "filter_semantics", "evaluate",
+            "evaluate_fscore", "save")] + [(Pipeline, "fuse_many", True)]
+    torch.cuda.synchronize()
+    reset_counts()
+    with stage_seconds(stages) as stage, hdf5_saves_checked() as checked:
+        t0 = time.perf_counter()
+        results = entry.test_fusion(cfg, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = read_counts()
+    fuse = stage["Pipeline.fuse_many"]
+    log(f"17c test_fusion (replica_accuracy.yaml from 17d's best.ckpt, "
+        f"{frames} frames of room_1 at {cfg.DATA.resx}x{cfg.DATA.resy} "
+        f"into {checked[0][1] if checked else None} at 1 cm): "
+        f"{secs:.3f} s in all; fuse_many {fuse:.3f} s = "
+        f"{frames / fuse:.2f} frames/s; filter "
+        f"{stage['Database.filter']:.3f} s, filter_semantics "
+        f"{stage['Database.filter_semantics']:.3f} s, evaluate "
+        f"{stage['Database.evaluate']:.3f} s, F-score "
+        f"{stage['Database.evaluate_fscore']:.3f} s, save "
+        f"{stage['Database.save']:.3f} s; stages "
+        f"{json.dumps({k: round(v, 3) for k, v in stage.items()})}; "
+        f"launches {counts}")
+    log(f"  eval_results {json.dumps(results)}")
+    log(f"  hdf5 volumes read back bit-exact: {checked}")
+    if not results or not all(np.isfinite(v) for v in results.values()):
+        raise RuntimeError(f"17c test_fusion: metrics {results}")
+    if len(checked) != 3:
+        raise RuntimeError(f"17c: {len(checked)} hdf5 volumes saved")
+    require(counts, ["median_filter3d", "build_shadow_dirty",
+                     "reconcile_slot", "reconcile_key"], "17c test_fusion")
+    return counts
+
+
 def scannet_raw(dev, root: str, frames: int = 32):
     """Phase 17f: a raw ScanNet scan (32 frames of 640x480, no hdf):
     ``test_fusion`` on scannet.yaml (320x240, v3 gf 6, AdapNet++ stage 2
     with 21 classes predicting; seeded checkpoints at the config's paths;
-    ply saves: the card's machine has no h5py) over ``create_grid``'s 1 cm
-    grid, then ``test_segmentation`` on scannet_multi.yaml with
-    ``output_benchmark``; returns the launch counts of ``test_fusion``."""
+    ``save_mode: test``, the volumes read back bit-exact) over
+    ``create_grid``'s 1 cm grid, then ``test_segmentation`` on
+    scannet_multi.yaml with ``output_benchmark``; returns the launch
+    counts of ``test_fusion``."""
     import cv2
     t0 = time.perf_counter()
     lst, _, _ = write_scannet_tree(root, 2, frames, dev, 0.025)
@@ -3851,8 +4195,7 @@ def scannet_raw(dev, root: str, frames: int = 32):
     testing.semantic_2d_model_path = seeded_checkpoint(
         build_adapnet(cfg.SEMANTIC_2D_MODEL),
         os.path.join(root, testing.semantic_2d_model_path), 4)
-    cfg.SETTINGS.update(experiment_path=os.path.join(root, "scannet_ws"),
-                        save_mode="ply")
+    cfg.SETTINGS.experiment_path = os.path.join(root, "scannet_ws")
     cfg.DATA.update(root_dir=root, test_scene_list=lst)
     shape = get_data("ScanNet", get_data_config(cfg, "test"), dev
                      ).create_grid("scene0000_00", 0.1)[0].shape
@@ -3862,12 +4205,14 @@ def scannet_raw(dev, root: str, frames: int = 32):
             "evaluate_fscore", "save")] + [(Pipeline, "fuse_many", True)]
     torch.cuda.synchronize()
     reset_counts()
-    with stage_seconds(stages) as stage:
+    with stage_seconds(stages) as stage, hdf5_saves_checked() as checked:
         t0 = time.perf_counter()
         results = entry.test_fusion(cfg, dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     counts = read_counts()
+    if len(checked) != 3:
+        raise RuntimeError(f"17f: {len(checked)} hdf5 volumes saved")
     fuse = stage["Pipeline.fuse_many"]
     log(f"17f test_fusion (scannet.yaml, {frames} frames of 320x240 into "
         f"{shape} at 1 cm from the ply, v3 gf 6, stage 2 "
@@ -3878,6 +4223,7 @@ def scannet_raw(dev, root: str, frames: int = 32):
         f"stages {json.dumps({k: round(v, 3) for k, v in stage.items()})}"
         f"; launches {counts}")
     log(f"  eval_results {json.dumps(results)}")
+    log(f"  hdf5 volumes read back bit-exact: {checked}")
     if not results or not all(np.isfinite(v) for v in results.values()):
         raise RuntimeError(f"17f test_fusion: metrics {results}")
     require(counts, ["median_filter3d", "build_shadow_dirty",
@@ -3936,22 +4282,33 @@ def augmentations_check():
 
 def phase17(dev):
     """Phase 17: the real-data loaders on their datasets' layouts; returns
-    the launch counts of its main-path run (17f's test_fusion)."""
-    import importlib.util
-
+    the launch counts of its main-path runs (17d's train_fusion, 17c's
+    and 17f's test_fusion)."""
     import cv2
     import PIL
     t_all = time.perf_counter()
-    has_h5py = importlib.util.find_spec("h5py") is not None
     log(f"17a host libraries: cv2 {cv2.__version__}, PIL {PIL.__version__}"
-        f", h5py importable: {has_h5py} (17c-d, Replica test_fusion and "
-        f"train_fusion, read the gt grid from hdf5 and are not run here)")
+        f"; hdf5 through segfusion_tpu_torch/utils/hdf5.py")
+    counts = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_replica_") as root:
         lst = replica_loader(dev, root)
         replica_segmentation(dev, root, lst)
+        torch.cuda.empty_cache()
+        lists = room_lists(root, lst)
+        cfg = load_config(REPLICA_FUSION)
+        seg_ckpt = seeded_checkpoint(
+            build_adapnet(cfg.SEMANTIC_2D_MODEL),
+            os.path.join(root, cfg.TESTING.semantic_2d_model_path), 5)
+        t0 = time.perf_counter()
+        best, counts = replica_train(dev, root, lists, seg_ckpt)
+        torch.cuda.empty_cache()
+        for k, n in replica_test(dev, root, lists, seg_ckpt, best).items():
+            counts[k] += n
+        log(f"17c-d: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_scannet_") as root:
-        counts = scannet_raw(dev, root)
+        for k, n in scannet_raw(dev, root).items():
+            counts[k] += n
     torch.cuda.empty_cache()
     augmentations_check()
     log(f"phase 17: {time.perf_counter() - t_all:.1f} s")
@@ -3961,7 +4318,7 @@ def phase17(dev):
 def joint_demo(dev):
     """Phase 18: ``quality_demo`` on synthetic_tpu_demo_joint.yaml (60
     frames an epoch, 256x256, voxel 0.05, v3 gf 6 with the semantic head,
-    bf16; ply saves), cut from 3 epochs to 2: the config's 3 took 99-116 s
+    bf16; ``save_mode: test``), cut from 3 epochs to 2: the config's 3 took 99-116 s
     on an H100 at 700 W, over the phase's ~90 s. The trained net against
     random weights, each through ``test_fusion``. Fails unless the trained
     TSDF IoU and mesh F-score each beat random init's by DEMO_MARGIN;
@@ -3969,7 +4326,7 @@ def joint_demo(dev):
     cfg = load_config(DEMO_JOINT)
     cfg.TRAINING.n_epochs = 2
     with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_") as path:
-        cfg.SETTINGS.update(experiment_path=path, save_mode="ply")
+        cfg.SETTINGS.experiment_path = path
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()

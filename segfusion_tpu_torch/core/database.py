@@ -22,6 +22,7 @@ import torch
 from ..device import resolve_device
 from ..ops.integrate import pack_semantic_key
 from ..ops.kernels.median3d import median_filter3d
+from ..utils import hdf5
 from ..utils import metrics as metrics_lib
 from ..utils.mapping import get_mapping
 from ..utils.mesh import marching_cubes
@@ -221,7 +222,6 @@ class Database:
         os.makedirs(path, exist_ok=True)
 
         if save_mode in ("tsdf", "test"):
-            import h5py
             vol = self.volumes[scene_id]
             planes = [("tsdf", "TSDF", vol.tsdf),
                       ("weights", "weights", vol.weights)]
@@ -229,7 +229,7 @@ class Database:
                 planes.append(("semantics", "semantics", vol.semantics))
             for name, key, data in planes:
                 arr = self._crop(data, scene_id)
-                with h5py.File(os.path.join(path, f"{base}.{name}.hf5"),
+                with hdf5.File(os.path.join(path, f"{base}.{name}.hf5"),
                                "w") as hf:
                     hf.create_dataset(key, shape=arr.shape, data=arr)
 

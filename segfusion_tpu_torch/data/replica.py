@@ -22,6 +22,7 @@ from typing import List
 import numpy as np
 
 from ..core.volume import Voxelgrid
+from ..utils import hdf5
 from ..utils.mapping import replica_color_palette
 
 __all__ = ["Replica", "raw_camera_matrix"]
@@ -231,25 +232,25 @@ class Replica:
                  semantic_grid: bool = False):
         """(gt TSDF grid, gt label grid or None) from the preprocessed hdf:
         truncated, then padded by DATA.pad voxels. Raises
-        FileNotFoundError where the scene has no hdf (before h5py is
-        imported)."""
+        FileNotFoundError where the scene has no hdf, before anything is
+        opened."""
         name = "semantic_sdf.hdf" if self.semantics else "sdf.hdf"
         path = os.path.join(self.root_dir, scene, "gt_semantic_sdf", name)
         if not os.path.exists(path):
             raise FileNotFoundError(path)
-        import h5py
-        with h5py.File(path, "r") as f:
-            voxels = np.array(f["sdf"][0]).astype(np.float32)
-            if self.truncation_strategy == "artificial":
-                voxels[np.abs(voxels) >= truncation] = truncation
-            elif self.truncation_strategy == "standard":
-                voxels = np.clip(voxels, -truncation, truncation)
-            labels = None
-            if self.semantics:
-                labels = np.array(f["sdf"][1]).astype(np.uint8)
-                labels[np.abs(np.array(f["sdf"][0])) > truncation] = 0
+        with hdf5.File(path, "r") as f:
+            sdf = f["sdf"]
             voxel_size = float(f.attrs["voxel_size"])
             bbox0 = np.asarray(f.attrs["bbox"])[:, 0]
+        voxels = sdf[0].astype(np.float32)
+        if self.truncation_strategy == "artificial":
+            voxels[np.abs(voxels) >= truncation] = truncation
+        elif self.truncation_strategy == "standard":
+            voxels = np.clip(voxels, -truncation, truncation)
+        labels = None
+        if self.semantics:
+            labels = sdf[1].astype(np.uint8)
+            labels[np.abs(sdf[0]) > truncation] = 0
 
         voxels = np.pad(voxels, self.pad, "constant",
                         constant_values=-truncation)

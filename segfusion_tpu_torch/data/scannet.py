@@ -19,6 +19,7 @@ from typing import List
 import numpy as np
 
 from ..core.volume import Voxelgrid
+from ..utils import hdf5
 from ..utils.mapping import scannet_to_nyu40_map
 from ..utils.meshio import read_ply
 
@@ -151,24 +152,24 @@ class ScanNet:
                  semantic_grid: bool = False):
         """(gt TSDF grid, gt label grid or None) from ``<scene>_sdf.hdf``:
         truncated, then padded by DATA.pad voxels. Raises
-        FileNotFoundError where the scan has no hdf (before h5py is
-        imported)."""
+        FileNotFoundError where the scan has no hdf, before anything is
+        opened."""
         file = self._scan_file(scene, "_sdf.hdf")
         if not os.path.exists(file):
             raise FileNotFoundError(file)
-        import h5py
-        with h5py.File(file, "r") as f:
-            voxels = np.array(f["sdf"][0]).astype(np.float32)
-            if self.truncation_strategy == "artificial":
-                voxels[np.abs(voxels) >= truncation] = truncation
-            elif self.truncation_strategy == "standard":
-                voxels = np.clip(voxels, -truncation, truncation)
-            labels = None
-            if semantic_grid:
-                labels = np.array(f["sdf"][1]).astype(np.uint8)
-                labels[np.abs(np.array(f["sdf"][0])) > truncation] = 0
+        with hdf5.File(file, "r") as f:
+            sdf = f["sdf"]
             voxel_size = float(f.attrs["voxel_size"])
             bbox0 = np.asarray(f.attrs["bbox"])[:, 0]
+        voxels = sdf[0].astype(np.float32)
+        if self.truncation_strategy == "artificial":
+            voxels[np.abs(voxels) >= truncation] = truncation
+        elif self.truncation_strategy == "standard":
+            voxels = np.clip(voxels, -truncation, truncation)
+        labels = None
+        if semantic_grid:
+            labels = sdf[1].astype(np.uint8)
+            labels[np.abs(sdf[0]) > truncation] = 0
         voxels = np.pad(voxels, self.pad, "constant",
                         constant_values=-truncation)
         bbox = np.zeros((3, 2))

@@ -21,6 +21,7 @@ import os
 import numpy as np
 
 from ..ops.tsdf_fusion import tsdf_from_depth_views
+from ..utils import hdf5
 from ..utils.mesh import marching_cubes
 from ..utils.rasterize import rasterize_depth
 from .common import (fibonacci_sphere_views, load_mesh, look_at_view,
@@ -94,10 +95,9 @@ def main(argv=None):
         save_mesh(os.path.join(args.out_dir, name + ".off"), mv, mf)
         print(f"{name}: {len(mv)} verts {len(mf)} faces")
         if args.save_sdf:
-            import h5py
             bbox = np.stack([origin, origin + voxel * args.resolution],
                             axis=1)
-            with h5py.File(os.path.join(args.out_dir, name + "_sdf.hdf"),
+            with hdf5.File(os.path.join(args.out_dir, name + "_sdf.hdf"),
                            "w") as hf:
                 hf.create_dataset("sdf", shape=(1,) + tsdf.shape,
                                   data=tsdf[None], compression="gzip")

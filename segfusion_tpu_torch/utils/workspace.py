@@ -19,6 +19,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from . import hdf5
+
 __all__ = ["Workspace", "get_workspace"]
 
 
@@ -77,8 +79,7 @@ class Workspace:
                 json.dump(dict(config), f, indent=2, default=str)
 
     def _save_h5(self, filename: str, key: str, data):
-        import h5py
-        with h5py.File(os.path.join(self.output_path, filename), "w") as f:
+        with hdf5.File(os.path.join(self.output_path, filename), "w") as f:
             f.create_dataset(key, shape=np.asarray(data).shape,
                              data=np.asarray(data), compression="gzip",
                              compression_opts=9)

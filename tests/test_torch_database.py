@@ -12,6 +12,7 @@ except ``evaluate``, whose float sums may associate differently: within
 """
 
 import os
+import sys
 
 import h5py
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from segfusion_tpu_torch.config import Config
 from segfusion_tpu_torch.core.database import Database
 from segfusion_tpu_torch.core.volume import SceneVolume
 from segfusion_tpu_torch.data.synthetic import Synthetic
+from segfusion_tpu_torch.utils import hdf5
 from segfusion_tpu_torch.utils.workspace import Workspace as PortWorkspace
 from test_torch_utils import jax_mcubes_private  # noqa: F401 (a fixture)
 
@@ -175,13 +177,32 @@ def test_fscore_matches_jax(dbs):
     assert 0 < got["fscore"] <= 1
 
 
-def test_save_matches_jax(dbs, tmp_path):
-    """save in "test" mode: the hdf5 datasets equal, the ply files (mesh
-    and semantic mesh) byte-equal."""
+def assert_same_hdf5(a, b):
+    """The same datasets in dtype, shape, values, compression and chunk
+    shape; each file read through the port's reader as h5py reads it."""
+    with h5py.File(a, "r") as fa, h5py.File(b, "r") as fb:
+        assert list(fa) == list(fb)
+        for k in fa:
+            assert fa[k].dtype == fb[k].dtype and fa[k].shape == fb[k].shape
+            assert (fa[k].compression, fa[k].compression_opts,
+                    fa[k].chunks) == (fb[k].compression,
+                                      fb[k].compression_opts, fb[k].chunks)
+            np.testing.assert_array_equal(fb[k][()], fa[k][()])
+            for path, d in ((a, fa[k]), (b, fb[k])):
+                with hdf5.File(str(path), "r") as f:
+                    assert f[k].dtype == d.dtype
+                    assert f[k].tobytes() == d[()].tobytes()
+
+
+def test_save_matches_jax(dbs, tmp_path, monkeypatch):
+    """save in "test" mode, the port's with h5py blocked: the hdf5
+    datasets equal, the ply files (mesh and semantic mesh) byte-equal."""
     jdb, db = dbs
     s = db.scenes[0]
     jdb.save(str(tmp_path / "jax"), save_mode="test", scene_id=s)
-    db.save(str(tmp_path / "port"), save_mode="test", scene_id=s)
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "h5py", None)
+        db.save(str(tmp_path / "port"), save_mode="test", scene_id=s)
     names = sorted(os.listdir(tmp_path / "jax"))
     assert names == sorted(os.listdir(tmp_path / "port"))
     assert sum(n.endswith(".hf5") for n in names) == 3
@@ -191,22 +212,22 @@ def test_save_matches_jax(dbs, tmp_path):
         if n.endswith(".ply"):
             assert a.read_bytes() == b.read_bytes(), n
             continue
-        with h5py.File(a, "r") as fa, h5py.File(b, "r") as fb:
-            assert list(fa) == list(fb)
-            for k in fa:
-                assert fa[k].dtype == fb[k].dtype
-                np.testing.assert_array_equal(fb[k][()], fa[k][()])
+        assert_same_hdf5(a, b)
 
 
-def test_save_to_workspace_matches_jax(dbs, tmp_path):
-    """The workspace savers (gzip hdf5, ply), each package's own: the same
-    datasets, the ply byte-equal."""
+def test_save_to_workspace_matches_jax(dbs, tmp_path, monkeypatch):
+    """The workspace savers (gzip hdf5, ply), each package's own, the
+    port's with h5py blocked: the same datasets (gzip 9 at h5py's chunk
+    shape), the ply byte-equal."""
     jdb, db = dbs
     outs = []
     for name, d, ws_cls in (("jax", jdb, Workspace),
                             ("port", db, PortWorkspace)):
         ws = ws_cls(str(tmp_path / name), enable_tensorboard=False)
-        d.save_to_workspace(ws, "val", save_mode="test")
+        with monkeypatch.context() as m:
+            if name == "port":
+                m.setitem(sys.modules, "h5py", None)
+            d.save_to_workspace(ws, "val", save_mode="test")
         outs.append(ws.output_path)
     names = sorted(os.listdir(outs[0]))
     assert names == sorted(os.listdir(outs[1])) and len(names) == 4
@@ -215,9 +236,7 @@ def test_save_to_workspace_matches_jax(dbs, tmp_path):
         if n.endswith(".ply"):
             assert open(a, "rb").read() == open(b, "rb").read()
             continue
-        with h5py.File(a, "r") as fa, h5py.File(b, "r") as fb:
-            for k in fa:
-                np.testing.assert_array_equal(fb[k][()], fa[k][()])
+        assert_same_hdf5(a, b)
 
 
 def test_save_ply_mode_writes_mesh_only(dbs, tmp_path):

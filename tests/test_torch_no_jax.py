@@ -1,9 +1,13 @@
 """The port runs where there is no JAX: every module of
 ``segfusion_tpu_torch`` (its ``test_fusion`` entry point included) and
 ``chip_smoke.py`` import with ``jax``, ``jaxlib``, ``flax``, ``optax``,
-``msgpack`` and ``yaml`` blocked, and with the whole ``segfusion_tpu``
-namespace (the JAX package, host modules included) blocked too: the port
-keeps its own copies of what it needs (its checkpoint codec included)."""
+``msgpack``, ``yaml`` and ``h5py`` blocked, and with the whole
+``segfusion_tpu`` namespace (the JAX package, host modules included)
+blocked too: the port keeps its own copies of what it needs (its
+checkpoint and HDF5 codecs included). No source file of the port, nor
+``chip_smoke.py``, imports h5py anywhere, inside a function either."""
+
+import ast
 
 import os
 import subprocess
@@ -16,7 +20,7 @@ _PROBE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "msgpack", "yaml",
-               "segfusion_tpu"}
+               "h5py", "segfusion_tpu"}
 
     def refused(name):
         return name.split(".")[0] in BLOCKED
@@ -51,7 +55,7 @@ _PROBE = textwrap.dedent("""
                 "preprocess", "preprocess.common", "preprocess.scale",
                 "preprocess.fuse", "preprocess.simplify", "data.replica",
                 "data.scannet", "data.transforms", "data.augmentations",
-                "utils.mapping", "setup"):
+                "utils.mapping", "utils.hdf5", "setup"):
         assert "segfusion_tpu_torch." + new in names, new
     leaked = sorted(m for m in sys.modules if refused(m))
     assert not leaked, leaked
@@ -79,3 +83,26 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                           text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_port_sources_never_import_h5py():
+    """Every import statement in the port's sources and in
+    ``chip_smoke.py``, at any depth: none names h5py."""
+    sources = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(ROOT, "segfusion_tpu_torch")):
+        sources += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    assert len(sources) >= 75
+    found = []
+    for path in sources:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{os.path.relpath(path, ROOT)}:{node.lineno}"
+                      for n in names if n.split(".")[0] == "h5py"]
+    assert not found, found

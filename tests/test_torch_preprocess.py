@@ -23,6 +23,7 @@ from segfusion_tpu_torch.utils import simplify as sp
 from segfusion_tpu_torch.utils.mesh import marching_cubes
 from segfusion_tpu_torch.utils.meshio import read_off
 from tests.test_torch_nets import one_torch_thread  # noqa: F401 (a fixture)
+from tests.test_torch_utils import jax_mcubes_private  # noqa: F401 (a fixture)
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "tools", "preprocess"))
@@ -147,6 +148,53 @@ def test_fuse_round_trip_matches_jax():
     np.testing.assert_array_equal(erode_depth(d), j_erode(d))
     np.testing.assert_array_equal(fibonacci_sphere_views(5, 1.2),
                                   j_views(5, 1.2))
+
+
+def test_fuse_save_sdf_matches_jax(tmp_path, monkeypatch,
+                                   jax_mcubes_private):
+    """``preprocess.fuse --save_sdf`` with h5py blocked against
+    ``tools/preprocess/fuse.py --save_sdf`` on one sphere at the round
+    trip's size: the same dataset ``sdf`` (1, 64, 64, 64) f32, gzip at
+    h5py's default level and chunk shape, the same ``voxel_size`` and
+    ``bbox``; the volumes within the round trip's bound (1e-5 on all but
+    0.1% of the voxels); the port's reader reads both files as h5py
+    does."""
+    import h5py
+    import fuse as j_fuse
+    from segfusion_tpu_torch.preprocess import fuse as port_fuse
+    from segfusion_tpu_torch.utils import hdf5
+
+    v, f = sphere_mesh(r=0.35)
+    (tmp_path / "in").mkdir()
+    save_mesh(str(tmp_path / "in" / "ball.off"), v, f)
+    args = ["--in_dir", str(tmp_path / "in"), "--n_views", "24",
+            "--resolution", "64", "--image_size", "128", "--save_sdf"]
+    monkeypatch.setattr(sys, "argv", ["fuse.py", *args, "--out_dir",
+                                      str(tmp_path / "jax")])
+    j_fuse.main()
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "h5py", None)
+        port_fuse.main([*args, "--out_dir", str(tmp_path / "port"),
+                        "--device", "cpu"])
+    paths = [str(tmp_path / d / "ball_sdf.hdf") for d in ("jax", "port")]
+    with h5py.File(paths[0], "r") as fj, h5py.File(paths[1], "r") as fp:
+        assert list(fj) == list(fp) == ["sdf"]
+        dj, dp = fj["sdf"], fp["sdf"]
+        assert (dp.shape, dp.dtype, dp.compression, dp.compression_opts,
+                dp.chunks) == (dj.shape, dj.dtype, dj.compression,
+                               dj.compression_opts, dj.chunks)
+        assert dp.shape == (1, 64, 64, 64)
+        assert set(fj.attrs) == set(fp.attrs) == {"voxel_size", "bbox"}
+        for k in fj.attrs:
+            assert np.asarray(fp.attrs[k]).dtype == \
+                np.asarray(fj.attrs[k]).dtype
+            np.testing.assert_array_equal(fp.attrs[k], fj.attrs[k])
+        got, want = dp[()], dj[()]
+    far = np.abs(got - want.astype(np.float64)) > 1e-5
+    assert far.mean() <= 1e-3, far.mean()
+    for path, arr in zip(paths, (want, got)):
+        with hdf5.File(path, "r") as f:
+            assert f["sdf"].tobytes() == arr.tobytes()
 
 
 def test_entry_points(tmp_path):

@@ -227,14 +227,19 @@ def assert_same_grid(got, want):
 @pytest.mark.parametrize("strategy", ["standard", "artificial"])
 @pytest.mark.parametrize("semantics,semantic_grid", [
     ("class30", True), ("class30", False), (None, False)])
-def test_replica_grid_matches_jax(replica_root, strategy, semantics,
-                                  semantic_grid):
+def test_replica_grid_matches_jax(replica_root, monkeypatch, strategy,
+                                  semantics, semantic_grid):
+    """The JAX package reads the hdf through h5py, the port with h5py
+    blocked."""
     root, lst = replica_root
     jcfg, cfg = data_config(root, lst, truncation_strategy=strategy,
                             semantics=semantics)
     for scene in ("room_a", "room_b"):
-        assert_same_grid(Replica(cfg).get_grid(scene, 0.1, semantic_grid),
-                         JReplica(jcfg).get_grid(scene, 0.1, semantic_grid))
+        want = JReplica(jcfg).get_grid(scene, 0.1, semantic_grid)
+        with monkeypatch.context() as m:
+            m.setitem(sys.modules, "h5py", None)
+            got = Replica(cfg).get_grid(scene, 0.1, semantic_grid)
+        assert_same_grid(got, want)
 
 
 @pytest.mark.parametrize("strategy,res,ratio,semantics,input_key", [
@@ -258,14 +263,18 @@ def test_scannet_frames_match_jax(scannet_root, strategy, res, ratio,
 
 @pytest.mark.parametrize("strategy", ["standard", "artificial"])
 @pytest.mark.parametrize("semantic_grid", [True, False])
-def test_scannet_grid_matches_jax(scannet_root, strategy, semantic_grid):
+def test_scannet_grid_matches_jax(scannet_root, monkeypatch, strategy,
+                                  semantic_grid):
+    """The JAX package reads the hdf through h5py, the port with h5py
+    blocked."""
     root, lst = scannet_root
     jcfg, cfg = data_config(root, lst, truncation_strategy=strategy,
                             semantics="nyu40")
-    assert_same_grid(ScanNet(cfg).get_grid("scene0001_00", 0.1,
-                                           semantic_grid),
-                     JScanNet(jcfg).get_grid("scene0001_00", 0.1,
-                                             semantic_grid))
+    want = JScanNet(jcfg).get_grid("scene0001_00", 0.1, semantic_grid)
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "h5py", None)
+        got = ScanNet(cfg).get_grid("scene0001_00", 0.1, semantic_grid)
+    assert_same_grid(got, want)
 
 
 @pytest.mark.parametrize("pad", [0, 2])
@@ -310,8 +319,8 @@ def test_raw_camera_matrix_inverts_fix_extrinsics(poses):
 def test_missing_grid_raises_file_not_found(tmp_path, monkeypatch,
                                             h5py_importable):
     """``get_grid`` on a scene without an hdf raises FileNotFoundError
-    before it imports h5py, so that a raw scan reaches ``create_grid``
-    (and the Database builds its empty grid) where h5py is missing."""
+    before it opens anything, so that a raw scan reaches ``create_grid``
+    (and the Database builds its empty grid), with h5py or without."""
     rroot, sroot = str(tmp_path / "replica"), str(tmp_path / "scannet")
     lst = write_replica(rroot)
     os.remove(os.path.join(rroot, "room_b", "gt_semantic_sdf",

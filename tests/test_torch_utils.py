@@ -12,6 +12,7 @@ where torch sees no CUDA device; the CPU runs only where it is named.
 
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -115,7 +116,8 @@ def test_write_ply_bytes_match_jax(tmp_path, extras):
 
 def test_workspace_matches_jax(tmp_path, monkeypatch, jax_mcubes_private):
     """The same directory tree, config snapshot, hdf5 datasets and meshed
-    ply; the port's workspace meshes with its own marching cubes."""
+    ply; the port's workspace meshes with its own marching cubes and
+    writes its hdf5 with h5py blocked."""
     from segfusion_tpu.config import load_config
 
     tsdf = _volumes(4)[1] * 4
@@ -127,7 +129,10 @@ def test_workspace_matches_jax(tmp_path, monkeypatch, jax_mcubes_private):
         cfg["TIMESTAMP"] = "t0"
         ws = mod.get_workspace(cfg)
         ws.log("hello", "test")
-        ws.save_tsdf_data("v.tsdf.hf5", tsdf)
+        with monkeypatch.context() as m:
+            if name == "port":
+                m.setitem(sys.modules, "h5py", None)
+            ws.save_tsdf_data("v.tsdf.hf5", tsdf)
         ws.save_ply_data("v.ply", tsdf, voxel_size=0.05)
     port, jax_ = (tmp_path / name / "ws" / "t0" for name in ("port", "jax"))
 
@@ -147,6 +152,9 @@ def test_workspace_matches_jax(tmp_path, monkeypatch, jax_mcubes_private):
     with h5py.File(port / "output" / "v.tsdf.hf5") as a, \
             h5py.File(jax_ / "output" / "v.tsdf.hf5") as b:
         np.testing.assert_array_equal(a["TSDF"][()], b["TSDF"][()])
+        assert a["TSDF"].dtype == b["TSDF"].dtype
+        assert (a["TSDF"].compression_opts, a["TSDF"].chunks) == \
+            (b["TSDF"].compression_opts, b["TSDF"].chunks)
 
 
 def test_mcubes_source_is_the_jax_packages():
