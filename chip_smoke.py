@@ -9,7 +9,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from ``segfusion_tpu_torch/csrc`` (nvcc,
    sm_90a, one process per source, started together) and their ptxas
-   report, and of the host marching cubes (g++);
+   report, and of the host libraries (g++: marching cubes, the
+   rasterizer, the mesh simplifier, the zstd decoder);
 3. each slot kernel against its plain PyTorch version at 448^3, bf16 and
    f32 geo state (a random canonical volume entered into slot form, then
    a few ``integrate_rows`` updates): shadow builds bit-exact, reconcile
@@ -185,13 +186,32 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    g. every augmentation key on a 256x256 pair;
 18. ``quality_demo`` on synthetic_tpu_demo_joint.yaml, 2 of its 3 epochs
    of 60 frames: the trained TSDF IoU and mesh F-score must each beat
-   random init's by DEMO_MARGIN.
+   random init's by DEMO_MARGIN;
+19. the orbax checkpoints (``utils/checkpoints.py``
+   ``save_checkpoint_orbax`` / ``load_checkpoint_orbax`` over the port's
+   zstd, OCDBT and zarr codecs; the zstd decoder ``csrc/zstd.cpp`` is
+   built with the other host libraries in phase 2):
+   a. phase 9's trained state (FusionNet v3 gf 6 with the semantic
+      head, its bf16 copies, the rmsprop state, the step counter), the
+      headline's AdapNet++ stage 2 (bf16) and a 448^3 float32 + uint8
+      scene volume saved and loaded back without a template and with the
+      state itself as the template (tensors back on the card): every
+      leaf bit-equal; host seconds and MB/s of each; then ``fuse_many``
+      (phase 7's stream, then the label median) with the restored nets,
+      bit-equal to the same stream with the nets in memory, both under
+      ``torch.use_deterministic_algorithms`` (the integration's atomic
+      scatter-adds otherwise differ from run to run in the low bits);
+   b. the committed orbax checkpoint that the JAX package wrote
+      (``segfusion_tpu_torch/utils/fixtures/orbax_small``, real zstd:
+      Huffman literals, FSE sequences, several blocks) loaded onto the
+      card and held leaf by leaf to the arrays its seed gives; each of
+      its frames decoded by the C++ decoder and by the plain one, equal.
 
 Launch counts are reset just before each main-path run (3c's probe
 mains, 4, 4b, 5, 8, 9, the trainer of 10, 11c, 14's runs, 15b, c and e,
-16b, c and d, 17d's ``train_fusion``, 17c's and 17f's ``test_fusion``
-and 18) and read just after; the
-kernel checks' launches are not counted.
+16b, c and d, 17d's ``train_fusion``, 17c's and 17f's ``test_fusion``,
+18 and 19a's ``fuse_many`` with the restored nets) and read just after;
+the kernel checks' launches are not counted.
 
 Then one JSON line of per-kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result where
@@ -202,6 +222,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import random
@@ -264,7 +285,10 @@ from segfusion_tpu_torch.probes import (dynamic_gather, pallas_caps,
                                         random_access, shadow_debug,
                                         shadow_variants)
 from segfusion_tpu_torch.utils import hdf5, torch_convert
-from segfusion_tpu_torch.utils.checkpoints import save_checkpoint
+from segfusion_tpu_torch.utils import fixtures, ocdbt, zstd
+from segfusion_tpu_torch.utils.checkpoints import (load_checkpoint_orbax,
+                                                   save_checkpoint,
+                                                   save_checkpoint_orbax)
 from segfusion_tpu_torch.utils.convert import (fusionnet_from_checkpoint,
                                                to_flax)
 from segfusion_tpu_torch.utils.mesh import MCUBES_SOURCE, marching_cubes
@@ -1508,7 +1532,8 @@ def running_stats(net) -> torch.Tensor:
 
 def training(dev, n: int = 448, hw: int = 256):
     """Phase 9: the full-width training configuration (n^3, hw x hw
-    frames); returns the launch counts of the timed run."""
+    frames); returns the launch counts of the timed run and the trained
+    net with its optimizer (phase 19 checkpoints them)."""
     cfg = train_config(hw, hw)
     accum = int(cfg.TRAINING.optimization.accumulation_steps)
     t0 = time.perf_counter()
@@ -1560,7 +1585,7 @@ def training(dev, n: int = 448, hw: int = 256):
         raise RuntimeError("training: implausible peeked volume")
     require(counts, ["build_shadow_dirty", "reconcile_slot",
                      "reconcile_key"], "training")
-    return counts
+    return counts, {"fusion_net": net, "optimizer": optimizer}
 
 
 def small_train_config(rule: str):
@@ -4346,6 +4371,233 @@ def joint_demo(dev):
     return counts
 
 
+# -- phase 19: orbax checkpoints ----------------------------------------------
+
+def nested(flat: dict) -> dict:
+    """A module's state dict as nested dicts (its dotted names split)."""
+    out: dict = {}
+    for name, value in flat.items():
+        node = out
+        *head, last = name.split(".")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = value
+    return out
+
+
+def flattened(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out |= flattened(v, f"{prefix}.{k}" if prefix else k)
+        return out
+    return {prefix: tree}
+
+
+def leaf_bits(x):
+    """(shape, element size, bytes) of a tensor, array or scalar leaf."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().contiguous().cpu()
+        return (tuple(t.shape), t.element_size(),
+                t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    if isinstance(x, (bool, int, float)):
+        return (), None, repr(x).encode()
+    a = np.asarray(x)
+    return a.shape, a.itemsize, a.tobytes()
+
+
+def require_same_leaves(ref: dict, got: dict, what: str):
+    """Raises unless ``got`` holds ``ref``'s keys with bit-equal leaves."""
+    ref_f, got_f = flattened(ref), flattened(got)
+    if sorted(ref_f) != sorted(got_f):
+        raise RuntimeError(f"{what}: keys differ: "
+                           f"{sorted(set(ref_f) ^ set(got_f))[:5]}")
+    bad = [k for k in ref_f if leaf_bits(ref_f[k]) != leaf_bits(got_f[k])]
+    if bad:
+        raise RuntimeError(f"{what}: {len(bad)} leaves differ, e.g. "
+                           f"{bad[:5]}")
+
+
+def checkpoint_state(dev, trained, adapnet, n: int = 448) -> dict:
+    """Phase 9's trained FusionNet (float32 masters, their bf16 copies,
+    the rmsprop state, the step counter), the headline's AdapNet++ stage
+    2 and an n^3 float32 TSDF + uint8 label scene volume."""
+    net, optimizer = trained["fusion_net"], trained["optimizer"]
+    fusion = {k: v.detach() for k, v in net.state_dict().items()}
+    ax = (torch.arange(n, device=dev, dtype=torch.float32) + 0.5) / n - 0.5
+    dist = torch.sqrt(ax[:, None, None] ** 2 + ax[None, :, None] ** 2
+                      + ax[None, None, :] ** 2) - 0.3
+    return {
+        "fusion": nested(fusion),
+        "fusion_bf16": nested({k: v.to(torch.bfloat16) for k, v in
+                               fusion.items() if v.is_floating_point()}),
+        "segmenter": nested({k: v.detach() for k, v in
+                             adapnet.state_dict().items()}),
+        "opt_state": optimizer.state_dict_flax(),
+        "step": int(optimizer.count), "epoch": 1, "best_iou": 0.25,
+        "scene": {"tsdf": torch.clamp(dist / 0.01, -1, 1),
+                  "labels": label_volume((n, n, n), dev, seed=19)},
+    }
+
+
+def state_bytes(tree) -> int:
+    return sum(len(leaf_bits(v)[2]) for v in flattened(tree).values())
+
+
+def fuse_many_nets(cfg, dev, fusion_net, adapnet):
+    """Phase 7's stream through ``fuse_many`` and the label median with
+    the given nets; (the scene's volume, launch counts)."""
+    data = Synthetic(cfg.DATA, device=dev)
+    db = Database(data, cfg.DATA, device=dev)
+    pipe = Pipeline(cfg, segmenter=SegmenterAdapter(adapnet.eval()),
+                    fusion_net=fusion_net, device=dev)
+    batches = []
+    for i in range(len(data)):
+        item = data[i]
+        batches.append({k: (np.asarray(v)[None] if isinstance(v, np.ndarray)
+                            else v) for k, v in item.items()}
+                       | {"frame_id": [item["frame_id"]]})
+    torch.cuda.synchronize()
+    reset_counts()
+    pipe.fuse_many(batches, db, chunk=4)
+    db.filter_semantics()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    s = data.scenes[0]
+    check_volume(db.volumes[s], "phase 19a fuse_many volume")
+    return db.volumes[s], counts
+
+
+def restored_nets(cfg, dev, restored, dtype):
+    """A FusionNet v3 and an AdapNet++ built anew and loaded from a
+    checkpoint read without a template (numpy and bf16 host leaves)."""
+    def tensors(tree):
+        return {k: torch.as_tensor(v) for k, v in flattened(tree).items()}
+    net = build_fusion_net(cfg.FUSION_MODEL)
+    net.load_state_dict(tensors(restored["fusion"]))
+    adapnet = build_adapnet(cfg.SEMANTIC_2D_MODEL).to(dev, dtype)
+    adapnet.load_state_dict(tensors(restored["segmenter"]))
+    return net, adapnet
+
+
+def orbax_round_trip(dev, trained):
+    """Phase 19a; returns the launch counts of the restored nets' run."""
+    cfg = headline_config()
+    cfg.DATA.update(n_frames=6, voxel_resolution=0.05, noise_sigma=0.01)
+    dtype = (torch.bfloat16 if cfg.SEMANTIC_2D_MODEL.get("compute_dtype")
+             in ("bfloat16", "bf16") else torch.float32)
+    adapnet = seeded_init(build_adapnet(cfg.SEMANTIC_2D_MODEL),
+                          torch.Generator().manual_seed(5)).to(dev, dtype)
+    state = checkpoint_state(dev, trained, adapnet)
+    torch.cuda.synchronize()
+    mb = state_bytes(state) / 1e6
+    n_leaves = len(flattened(state))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orbax_") as root:
+        path = os.path.join(root, "ckpt")
+        t0 = time.perf_counter()
+        save_checkpoint_orbax(state, path)
+        t_save = time.perf_counter() - t0
+        on_disk = sum(os.path.getsize(os.path.join(b, f))
+                      for b, _, fs in os.walk(path) for f in fs) / 1e6
+        log(f"phase 19a save_checkpoint_orbax: {n_leaves} leaves, "
+            f"{mb:.1f} MB in {t_save:.3f} s = {mb / t_save:.1f} MB/s "
+            f"(host; {on_disk:.1f} MB on disk)")
+        t0 = time.perf_counter()
+        plain = load_checkpoint_orbax(path)
+        t_load = time.perf_counter() - t0
+        log(f"phase 19a load_checkpoint_orbax without a template: "
+            f"{mb:.1f} MB in {t_load:.3f} s = {mb / t_load:.1f} MB/s (host)")
+        t0 = time.perf_counter()
+        templated = load_checkpoint_orbax(path, state)
+        torch.cuda.synchronize()
+        t_tmpl = time.perf_counter() - t0
+        log(f"phase 19a load_checkpoint_orbax into the state's tensors on "
+            f"the card: {mb:.1f} MB in {t_tmpl:.3f} s = "
+            f"{mb / t_tmpl:.1f} MB/s (host, the copies to the card "
+            f"included)")
+    require_same_leaves(state, plain, "phase 19a load without a template")
+    require_same_leaves(state, templated, "phase 19a load with a template")
+    cuda_leaves = [k for k, v in flattened(templated).items()
+                   if isinstance(v, torch.Tensor) and v.device != dev]
+    if cuda_leaves or not isinstance(plain["scene"]["tsdf"], np.ndarray):
+        raise RuntimeError(f"phase 19a: leaves off the card {cuda_leaves[:3]}"
+                           f" or a tensor where numpy was due")
+    log(f"phase 19a: every leaf bit-equal both ways ({n_leaves} leaves, "
+        f"bf16 ones as torch.bfloat16, step {plain['step']})")
+    del templated, state
+    torch.cuda.empty_cache()
+
+    net_b, adapnet_b = restored_nets(cfg, dev, plain, dtype)
+    # the integration's atomic scatter-adds make two runs of one stream
+    # differ in the low bits; torch's deterministic forms make them equal
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        vol_a, _ = fuse_many_nets(cfg, dev, trained["fusion_net"], adapnet)
+        vol_b, counts = fuse_many_nets(cfg, dev, net_b, adapnet_b)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    fields = [f.name for f in dataclasses.fields(vol_a)
+              if isinstance(getattr(vol_a, f.name), torch.Tensor)]
+    bad = [f for f in fields if not torch.equal(getattr(vol_a, f),
+                                                getattr(vol_b, f))]
+    if bad or not fields:
+        raise RuntimeError(f"phase 19a: fuse_many with the restored nets "
+                           f"differs in {bad}")
+    log(f"phase 19a fuse_many + label median with the restored nets: "
+        f"bit-equal to the nets in memory, deterministic algorithms "
+        f"({', '.join(fields)}); "
+        f"launches {counts}")
+    require(counts, ["reconcile_slot", "reconcile_key", "median_filter3d"],
+            "phase 19a")
+    if counts["build_shadow"] + counts["build_shadow_dirty"] == 0:
+        raise RuntimeError("phase 19a: no shadow build launched")
+    return counts
+
+
+def orbax_fixture(dev):
+    """Phase 19b: the JAX package's orbax checkpoint, real zstd."""
+    seed = fixtures.orbax_small_state()
+    bf16 = {".".join(k) for k in fixtures.BF16_LEAVES}
+    template = {k: (torch.as_tensor(v, device=dev).to(torch.bfloat16)
+                    if k in bf16 else torch.as_tensor(np.asarray(v),
+                                                      device=dev))
+                if isinstance(v, np.ndarray) else v
+                for k, v in flattened(seed).items()}
+    t0 = time.perf_counter()
+    got = load_checkpoint_orbax(fixtures.ORBAX_SMALL, nested(template))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    require_same_leaves(nested(template), got, "phase 19b fixture")
+    store = ocdbt.open_store(fixtures.ORBAX_SMALL)
+    frames = [store.read(k) for k in store.keys()
+              if not k.endswith(b"/.zarray")]
+    t0 = time.perf_counter()
+    fast = [bytes(zstd.decompress(f)) for f in frames]
+    t_fast = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = [zstd.decompress_plain(f) for f in frames]
+    t_plain = time.perf_counter() - t0
+    if fast != slow:
+        raise RuntimeError("phase 19b: the C++ zstd decoder differs from "
+                           "the plain one")
+    n_in, n_out = sum(map(len, frames)), sum(map(len, fast))
+    log(f"phase 19b orbax fixture (JAX package's save_checkpoint_orbax, "
+        f"{len(template)} leaves): loaded onto the card in {t_load:.3f} s, "
+        f"every leaf equal to its seed's; {len(frames)} zstd frames, "
+        f"{n_in} -> {n_out} bytes: C++ {1e3 * t_fast:.2f} ms, plain "
+        f"{1e3 * t_plain:.2f} ms, equal")
+
+
+def orbax_checkpoints(dev, trained):
+    """Phase 19; returns 19a's launch counts."""
+    t0 = time.perf_counter()
+    counts = orbax_round_trip(dev, trained)
+    orbax_fixture(dev)
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4372,7 +4624,8 @@ def main() -> int:
               lambda: _build.load_library("probes"),
               lambda: _build.load_host_library(MCUBES_SOURCE),
               lambda: _build.load_host_library(RASTERIZE_SOURCE),
-              lambda: _build.load_host_library(SIMPLIFY_SOURCE)]
+              lambda: _build.load_host_library(SIMPLIFY_SOURCE),
+              lambda: _build.load_host_library(zstd.ZSTD_SOURCE)]
     with ThreadPoolExecutor(len(builds)) as pool:
         infos = [info for _, info in pool.map(lambda b: b(), builds)]
     log(f"build: {len(infos)} libraries in parallel, "
@@ -4391,10 +4644,12 @@ def main() -> int:
     fuse_many_run(dev)
     for k, n in entry_point(dev).items():
         launches[k] += n
-    for phase in (training, train_entry_point):
-        for k, n in phase(dev).items():
+    counts, trained = training(dev)
+    torch.cuda.empty_cache()
+    for phase_counts in (counts, train_entry_point(dev)):
+        for k, n in phase_counts.items():
             launches[k] += n
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     training_reference(dev)
 
     t0 = time.perf_counter()
@@ -4417,6 +4672,8 @@ def main() -> int:
         for k, n in phase(dev).items():
             launches[k] += n
         torch.cuda.empty_cache()
+    for k, n in orbax_checkpoints(dev, trained).items():
+        launches[k] += n
 
     replaces = {"build_shadow_dirty": f"{PALLAS}:359",
                 "build_shadow": f"{PALLAS}:254",

@@ -15,21 +15,35 @@ Integers and lengths take msgpack's shortest encoding and map keys go in
 sorted order, as Flax writes them, so the bytes are Flax's own. A dtype
 name the codec does not know raises. Checkpoint leaves are written as
 numpy arrays (scalars as 0-d arrays), as the JAX package's
-``save_checkpoint`` does. The orbax checkpoints of the JAX
-package come with multihost support (ROADMAP Queue 1 #4).
+``save_checkpoint`` does.
+
+The JAX package's orbax checkpoints (``save_checkpoint_orbax`` /
+``load_checkpoint_orbax``, the directory that orbax's
+``StandardCheckpointer`` writes from one process) are read and written
+here without orbax or tensorstore: ``_METADATA`` and
+``_CHECKPOINT_METADATA`` in JSON, every leaf a zarr v2 array
+(``utils/zarr.py``) in an OCDBT key-value store (``utils/ocdbt.py``)
+whose chunks are zstd frames (``utils/zstd.py``).
 """
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
 import struct
-from typing import Any, Dict, Mapping
+import time
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
+import torch
+
+from . import ocdbt, zarr
 
 __all__ = ["save_checkpoint", "load_checkpoint", "restore_into",
            "remove_parent", "select_child", "separate_pipeline",
-           "msgpack_serialize", "msgpack_restore"]
+           "msgpack_serialize", "msgpack_restore", "save_checkpoint_orbax",
+           "load_checkpoint_orbax"]
 
 MAX_CHUNK_SIZE = 2 ** 30          # Flax's: msgpack caps a leaf at 2**31 - 1
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
@@ -337,3 +351,198 @@ def separate_pipeline(pipeline_ckpt_path: str, fusion_out_path: str,
     }
     save_checkpoint(fusion, fusion_out_path)
     return fusion
+
+
+# -- orbax checkpoints --------------------------------------------------------
+
+_HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+            "StandardCheckpointHandler")
+_DICT_KEY = 2                      # orbax's key_type of a dict key
+_EMPTY = object()                  # an empty dict or list in the tree
+
+
+def _orbax_leaves(tree, path: Tuple[str, ...] = ()):
+    """(key path, leaf) in key order, lists and tuples as dicts keyed
+    "0", "1", ... (``flax.serialization.to_state_dict``); an empty dict
+    inside the tree is a leaf of its own, as orbax records it."""
+    if isinstance(tree, (list, tuple)):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    if isinstance(tree, Mapping):
+        if not tree and path:
+            yield path, _EMPTY
+        for k in sorted(tree, key=str):
+            yield from _orbax_leaves(tree[k], path + (str(k),))
+    else:
+        yield path, tree
+
+
+def _orbax_array(leaf):
+    """(value type, array, zarr dtype name or None) of a leaf."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return ("np.ndarray", t.contiguous().view(torch.int16).numpy()
+                    .view(np.uint16), zarr.BFLOAT16)
+        return "np.ndarray", t.numpy(), None
+    if isinstance(leaf, (np.ndarray, np.generic)):
+        arr = np.asarray(leaf)
+        if arr.dtype.name == zarr.BFLOAT16:            # ml_dtypes' bfloat16
+            return "np.ndarray", arr.view(np.uint16), zarr.BFLOAT16
+        return "np.ndarray", arr, None
+    if isinstance(leaf, (bool, int, float)):
+        return "scalar", np.asarray(leaf), None
+    raise TypeError(f"cannot save a leaf of type {type(leaf).__name__}")
+
+
+def save_checkpoint_orbax(state: Dict[str, Any], path: str,
+                          wait: bool = True):
+    """Write ``state`` (nested dicts of torch tensors, numpy arrays and
+    Python scalars) as the directory that orbax's ``StandardCheckpointer``
+    writes from one process, replacing a directory already at ``path``
+    (orbax's ``force=True``) through a temporary directory and a rename.
+    Tensors are copied to the host, bfloat16 as its 16-bit pattern under
+    the zarr dtype ``bfloat16``; Python scalars are orbax's ``scalar``
+    leaves, the rest ``np.ndarray`` leaves. The write is synchronous:
+    ``wait`` is accepted for the JAX signature, and the checkpoint is
+    complete on return either way."""
+    del wait
+    path = os.path.abspath(path)
+    init = time.time_ns()
+    tmp = f"{path}.orbax-checkpoint-tmp-{init}"
+    items: Dict[bytes, bytes] = {}
+    tree: Dict[str, Any] = {}
+    for keys, leaf in _orbax_leaves(state):
+        entry = {"key_metadata": [{"key": k, "key_type": _DICT_KEY}
+                                  for k in keys]}
+        if leaf is _EMPTY:
+            entry["value_metadata"] = {"value_type": "Dict",
+                                       "skip_deserialize": True}
+        else:
+            kind, arr, dtype_name = _orbax_array(leaf)
+            if arr.size == 0:
+                raise ValueError(f"cannot save arrays with zero size: "
+                                 f"{'.'.join(keys)}")
+            meta, chunk_key, chunk = zarr.encode(arr, dtype_name)
+            name = ".".join(keys)
+            items[f"{name}/.zarray".encode()] = meta
+            items[f"{name}/{chunk_key}".encode()] = chunk
+            entry["value_metadata"] = {"value_type": kind,
+                                       "skip_deserialize": False}
+        tree[str(keys)] = entry
+    os.makedirs(tmp)
+    try:
+        ocdbt.write_store(tmp, items)
+        _write_json(os.path.join(tmp, "_METADATA"), {
+            "tree_metadata": tree, "use_ocdbt": True, "use_zarr3": False,
+            "store_array_data_equal_to_fill_value": True,
+            "custom_metadata": None})
+        _write_json(os.path.join(tmp, "_CHECKPOINT_METADATA"), {
+            "item_handlers": _HANDLER, "metrics": {},
+            "performance_metrics": {}, "init_timestamp_nsecs": init,
+            "commit_timestamp_nsecs": time.time_ns(), "custom_metadata": {}})
+        if os.path.lexists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def _write_json(path: str, obj):
+    with open(path, "w") as f:
+        f.write(json.dumps(obj))
+
+
+def _orbax_leaf(store, keys: List[str], kind: str):
+    name = ".".join(keys)
+    meta = json.loads(store.read(f"{name}/.zarray".encode()))
+
+    def chunk(key: str):
+        k = f"{name}/{key}".encode()
+        return store.read(k) if k in store else None
+
+    arr = zarr.decode(meta, chunk)
+    if meta["dtype"] == zarr.BFLOAT16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return arr.item() if kind == "scalar" else arr
+
+
+def load_checkpoint_orbax(path: str, template=None) -> Dict[str, Any]:
+    """Read a checkpoint that orbax's ``StandardCheckpointer`` (or
+    :func:`save_checkpoint_orbax`) wrote. Without a template: nested
+    dicts of numpy arrays (``np.ndarray`` and ``jax.Array`` leaves),
+    CPU ``torch.bfloat16`` tensors (bfloat16 leaves, which numpy lacks)
+    and Python scalars (``scalar`` leaves). With a template (nested dicts
+    of tensors, arrays and scalars): the template's structure, each leaf
+    of the template leaf's type and dtype, a tensor on its device. A key
+    that one tree has and the other lacks raises ``ValueError``, as in
+    orbax, and so does an array whose shape differs from the template's
+    (orbax raises for ``jax.Array`` templates and returns the stored
+    shape for numpy ones). ``_sharding`` and ``array_metadatas`` are not
+    needed and not read."""
+    path = os.path.abspath(path)
+    with open(os.path.join(path, "_METADATA")) as f:
+        meta = json.load(f)
+    store = ocdbt.open_store(path)
+    tree: Dict[str, Any] = {}
+    for entry in meta["tree_metadata"].values():
+        keys = [str(k["key"]) for k in entry["key_metadata"]]
+        value = entry["value_metadata"]
+        kind = value["value_type"]
+        if kind == "Dict":                     # an empty dict
+            leaf = {}
+        elif value.get("skip_deserialize"):
+            continue
+        else:
+            leaf = _orbax_leaf(store, keys, kind)
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    if template is None:
+        return tree
+    return _into_template(template, tree, "")
+
+
+def _into_template(t, s, path: str):
+    if isinstance(t, (list, tuple)):
+        d = _into_template({str(i): v for i, v in enumerate(t)}, s, path)
+        return type(t)(d[str(i)] for i in range(len(t)))
+    if isinstance(t, Mapping):
+        if not isinstance(s, Mapping):
+            raise ValueError(f"{path or '/'}: the checkpoint holds a leaf "
+                             f"where the template has a dict")
+        missing = sorted(set(map(str, t)) - set(s))
+        extra = sorted(set(s) - set(map(str, t)))
+        if missing or extra:
+            raise ValueError(f"{path or '/'}: the template's keys do not "
+                             f"match the checkpoint's: the checkpoint lacks "
+                             f"{missing}, the template lacks {extra}")
+        return {k: _into_template(v, s[str(k)], f"{path}/{k}")
+                for k, v in t.items()}
+    if isinstance(s, Mapping):
+        raise ValueError(f"{path}: the checkpoint holds a dict where the "
+                         f"template has a leaf")
+    if isinstance(t, torch.Tensor):
+        v = s if isinstance(s, torch.Tensor) else torch.from_numpy(
+            np.array(s))
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"{path}: shape {tuple(v.shape)} where the "
+                             f"template has {tuple(t.shape)}")
+        return v.to(device=t.device, dtype=t.dtype)
+    if isinstance(t, (np.ndarray, np.generic)):
+        v = (s.float().numpy() if isinstance(s, torch.Tensor)
+             else np.asarray(s))
+        if v.shape != np.shape(t):
+            raise ValueError(f"{path}: shape {v.shape} where the template "
+                             f"has {np.shape(t)}")
+        v = v.astype(t.dtype)
+        return v if isinstance(t, np.ndarray) else v[()]
+    if isinstance(t, (bool, int, float)):
+        v = s.float() if isinstance(s, torch.Tensor) else np.asarray(s)
+        if tuple(v.shape) != ():
+            raise ValueError(f"{path}: shape {tuple(v.shape)} where the "
+                             f"template has a scalar")
+        return type(t)(v.item())
+    raise TypeError(f"{path}: cannot restore into a template leaf of type "
+                    f"{type(t).__name__}")

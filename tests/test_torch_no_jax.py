@@ -1,18 +1,21 @@
 """The port runs where there is no JAX: every module of
 ``segfusion_tpu_torch`` (its ``test_fusion`` entry point included) and
 ``chip_smoke.py`` import with ``jax``, ``jaxlib``, ``flax``, ``optax``,
-``msgpack``, ``yaml`` and ``h5py`` blocked, and with the whole
+``msgpack``, ``yaml``, ``h5py``, ``orbax``, ``tensorstore`` and
+``zstandard`` blocked, and with the whole
 ``segfusion_tpu`` namespace (the JAX package, host modules included)
 blocked too: the port keeps its own copies of what it needs (its
-checkpoint and HDF5 codecs included). No source file of the port, nor
-``chip_smoke.py``, imports h5py anywhere, inside a function either."""
+checkpoint, HDF5, zstd, OCDBT and zarr codecs included). No source file
+of the port, nor ``chip_smoke.py``, imports h5py, orbax, tensorstore or
+zstandard anywhere, inside a function either."""
 
 import ast
-
 import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -20,7 +23,7 @@ _PROBE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "msgpack", "yaml",
-               "h5py", "segfusion_tpu"}
+               "h5py", "orbax", "tensorstore", "zstandard", "segfusion_tpu"}
 
     def refused(name):
         return name.split(".")[0] in BLOCKED
@@ -55,7 +58,8 @@ _PROBE = textwrap.dedent("""
                 "preprocess", "preprocess.common", "preprocess.scale",
                 "preprocess.fuse", "preprocess.simplify", "data.replica",
                 "data.scannet", "data.transforms", "data.augmentations",
-                "utils.mapping", "utils.hdf5", "setup"):
+                "utils.mapping", "utils.hdf5", "utils.zstd", "utils.ocdbt",
+                "utils.zarr", "utils.fixtures", "setup"):
         assert "segfusion_tpu_torch." + new in names, new
     leaked = sorted(m for m in sys.modules if refused(m))
     assert not leaked, leaked
@@ -85,9 +89,9 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     assert '"ok"' not in proc.stdout
 
 
-def test_port_sources_never_import_h5py():
+def _imports_of(module: str) -> list:
     """Every import statement in the port's sources and in
-    ``chip_smoke.py``, at any depth: none names h5py."""
+    ``chip_smoke.py``, at any depth, that names ``module``."""
     sources = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "segfusion_tpu_torch")):
         sources += [os.path.join(base, f) for f in files if f.endswith(".py")]
@@ -104,5 +108,21 @@ def test_port_sources_never_import_h5py():
             else:
                 continue
             found += [f"{os.path.relpath(path, ROOT)}:{node.lineno}"
-                      for n in names if n.split(".")[0] == "h5py"]
+                      for n in names if n.split(".")[0] == module]
+    return found
+
+
+def test_port_sources_never_import_h5py():
+    """Every import statement in the port's sources and in
+    ``chip_smoke.py``, at any depth: none names h5py."""
+    found = _imports_of("h5py")
+    assert not found, found
+
+
+@pytest.mark.parametrize("module", ["orbax", "tensorstore", "zstandard"])
+def test_port_sources_never_import_orbax_libraries(module):
+    """The orbax checkpoints go through the port's own zstd, OCDBT and
+    zarr codecs: no import of orbax, tensorstore or zstandard anywhere in
+    the port or ``chip_smoke.py``."""
+    found = _imports_of(module)
     assert not found, found
