@@ -1,0 +1,51 @@
+"""No module of the benchmark imports JAX, Flax or the JAX package, and
+the reference imports nothing of the port: top-level names compared
+whole (``segfusion_tpu_torch`` begins with ``segfusion_tpu``)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+from gpubench import harness
+
+BENCH = Path(__file__).resolve().parents[1]
+FILES = sorted(BENCH.rglob("*.py"))
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(
+    BENCH)))
+def test_no_jax(path):
+    assert not set(_imports(path)) & set(harness.FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", sorted((BENCH / "reference").rglob(
+    "*.py")), ids=lambda p: p.name)
+def test_reference_imports_no_port(path):
+    names = set(_imports(path))
+    assert "segfusion_tpu_torch" not in names
+    assert "gpubench" not in names
+
+
+def test_forbidden_modules_compares_whole_names():
+    mods = {"segfusion_tpu_torch.core": 1, "jaxtyping": 1, "numpy": 1}
+    assert harness.forbidden_modules(mods) == []
+    mods.update({"jax.numpy": 1, "segfusion_tpu.ops": 1, "flax": 1})
+    assert harness.forbidden_modules(mods) == ["flax", "jax.numpy",
+                                               "segfusion_tpu.ops"]
+
+
+@pytest.mark.parametrize("var", harness.OVERRIDES)
+def test_overrides_refused(var):
+    assert harness.refuse_overrides({}) is None
+    assert harness.refuse_overrides({var: "4"}) == var
