@@ -3564,8 +3564,9 @@ def preprocessing(dev):
 def tracing_tools(dev):
     """Phase 16f: ``trace`` around one headline block (phase 4's
     configuration, 4 frames) writes a Chrome trace holding device
-    kernels; ``nan_guard`` passes finite results through and trips on an
-    injected NaN on the card."""
+    kernels and ``spans.json``, whose spans claim the block's launches
+    and device time; ``nan_guard`` passes finite results through and
+    trips on an injected NaN on the card."""
     cfg = headline_config()
     pipe = build_pipeline(cfg, dev)
     frames = {k: v[:4] for k, v in render_frames(4, 256, 256, dev).items()}
@@ -3581,8 +3582,12 @@ def tracing_tools(dev):
         size = os.path.getsize(name)
         with open(name) as fh:
             events = json.load(fh)["traceEvents"]
+        with open(os.path.join(path, "spans.json")) as fh:
+            spans = json.load(fh)
     kernels = [e for e in events if e.get("cat") == "kernel"]
     busy_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    chunk = spans["reduction"]["spans"].get("chunk", {})
+    unclaimed_ms = spans["reduction"]["unclaimed"]["device_ms"]
     guarded = nan_guard(lambda t: torch.log(t) * 2)
     ok = bool(torch.isfinite(guarded(torch.ones(8, device=dev))).all())
     try:
@@ -3592,10 +3597,16 @@ def tracing_tools(dev):
         tripped = True
     log(f"16f trace of one headline block: {size} bytes, {len(events)} "
         f"events, {len(kernels)} device kernels, {busy_ms:.3f} ms of "
-        f"kernel time; nan_guard passes finite {ok}, trips on a NaN "
-        f"{tripped}")
-    if not kernels or not ok or not tripped:
-        raise RuntimeError("16f: the trace or the NaN guard failed")
+        f"kernel time; spans: {spans['counters']}, "
+        f"{chunk.get('launches_total', 0)} launches and "
+        f"{chunk.get('device_ms_total', 0.0):.3f} device ms in the chunk, "
+        f"{unclaimed_ms:.3f} ms unclaimed; nan_guard passes finite {ok}, "
+        f"trips on a NaN {tripped}")
+    if (not kernels or not ok or not tripped
+            or spans["counters"]["frames"] != 4
+            or not chunk.get("launches_total") or unclaimed_ms > 0.0):
+        raise RuntimeError("16f: the trace, its spans or the NaN guard "
+                           "failed")
 
 
 def phase16(dev):

@@ -63,6 +63,7 @@ from ..ops import geometry
 from ..ops import rowvol
 from ..ops import integrate as integ
 from ..ops.integrate import pack_semantic_key
+from ..utils import tracing
 from ..utils.losses import fusion_loss
 from .volume import SceneVolume
 
@@ -224,9 +225,10 @@ class Pipeline:
         if (cached is None or cached[1] != versions
                 or len(cached[0]) != len(state)
                 or any(a is not b for a, b in zip(cached[0], state))):
-            fast = ff.FastV3(self.fusion_net, dtype=self.net_dtype,
-                             conv3x3=self.fused_conv3x3,
-                             pack_vortex=self.fused_pack_vortex)
+            with tracing.span("fusionnet.fold"):
+                fast = ff.FastV3(self.fusion_net, dtype=self.net_dtype,
+                                 conv3x3=self.fused_conv3x3,
+                                 pack_vortex=self.fused_pack_vortex)
             self._fold_cache = cached = (state, versions, fast)
         return cached[2]
 
@@ -238,15 +240,16 @@ class Pipeline:
         ``fused_net_train`` are, else the eager module (in the mode the
         caller set)."""
         B, h, w = inputs["tsdf_frame"].shape[:3]
-        if train and self.fused_net_train:
-            est = ff.apply_v3_train(self.fusion_net, inputs,
-                                    dtype=self.net_dtype,
-                                    conv3x3=self.fused_conv3x3,
-                                    generator=self.dropout_generator)
-        elif not train and self.fused_net:
-            est = self.prepare_params()(inputs)
-        else:
-            est = self.fusion_net(inputs).reshape(B, h * w, -1)
+        with tracing.span("fusionnet"):
+            if train and self.fused_net_train:
+                est = ff.apply_v3_train(self.fusion_net, inputs,
+                                        dtype=self.net_dtype,
+                                        conv3x3=self.fused_conv3x3,
+                                        generator=self.dropout_generator)
+            elif not train and self.fused_net:
+                est = self.prepare_params()(inputs)
+            else:
+                est = self.fusion_net(inputs).reshape(B, h * w, -1)
         return est[..., :self.n_points]
 
     # -- semantics ------------------------------------------------------------
@@ -274,9 +277,10 @@ class Pipeline:
             return frames
         image, depth = frames["image"], frames["depth_input"]
         lead = depth.shape[:-2]
-        ids, scores = self._predict_semantics_batched(
-            image.reshape((-1,) + image.shape[-3:]),
-            depth.reshape((-1,) + depth.shape[-2:]))
+        with tracing.span("adapnet"):
+            ids, scores = self._predict_semantics_batched(
+                image.reshape((-1,) + image.shape[-3:]),
+                depth.reshape((-1,) + depth.shape[-2:]))
         return dict(frames, sem_ids_pre=ids.reshape(lead + (-1,)),
                     sem_scores_pre=scores.reshape(lead + (-1,)))
 
@@ -388,28 +392,34 @@ class Pipeline:
         k, h, w = depth.shape
         n = h * w
         p, t = self.n_points, self.n_tail_points
-        points_w = geometry.unproject(depth, frames["extrinsics"],
-                                      frames["intrinsics"])   # (k, n, 3)
-        eyes = frames["extrinsics"][:, :3, 3].float()
-        points_v = geometry.sample_ray_points(
-            points_w, eyes, rv.origin, rv.resolution, p).reshape(k * n, p, 3)
-        cr = rowvol.corner_rows(points_v, layout)
+        with tracing.span("rowops.front"):
+            points_w = geometry.unproject(depth, frames["extrinsics"],
+                                          frames["intrinsics"])  # (k, n, 3)
+            eyes = frames["extrinsics"][:, :3, 3].float()
+            points_v = geometry.sample_ray_points(
+                points_w, eyes, rv.origin, rv.resolution, p).reshape(
+                    k * n, p, 3)
+            cr = rowvol.corner_rows(points_v, layout)
 
         if shadow_carry is not None:
             prev_shadow, dirty = shadow_carry
-            shadow = rowvol.build_shadow_dirty(rv.geo, prev_shadow, dirty,
-                                               layout)
+            with tracing.span("k1"):
+                shadow = rowvol.build_shadow_dirty(rv.geo, prev_shadow,
+                                                   dirty, layout)
             # tail samples only: the scatters below touch only those rows
-            new_carry = (shadow, rowvol.dirty_tile_mask(points_v[:, :t],
-                                                        layout))
+            with tracing.span("rowops.dirty"):
+                new_carry = (shadow, rowvol.dirty_tile_mask(points_v[:, :t],
+                                                            layout))
         else:
-            shadow = rowvol.build_shadow(rv.geo, layout)
+            with tracing.span("k1"):
+                shadow = rowvol.build_shadow(rv.geo, layout)
             new_carry = None
-        fv, fw = rowvol.extract_rows(shadow, cr, self.init_value,
-                                     geometry.INVALID_TSDF_FILL)
-        inputs = self._row_net_inputs(fv, fw, depth, sem_ids)
-        ray_mask = (torch.where(frames["mask"], depth, 0.0).reshape(-1)
-                    != 0.0)
+        with tracing.span("rowops.extract"):
+            fv, fw = rowvol.extract_rows(shadow, cr, self.init_value,
+                                         geometry.INVALID_TSDF_FILL)
+            inputs = self._row_net_inputs(fv, fw, depth, sem_ids)
+            ray_mask = (torch.where(frames["mask"], depth, 0.0).reshape(-1)
+                        != 0.0)
         return cr, fv, fw, inputs, ray_mask, new_carry
 
     def _row_net_inputs(self, fv, fw, depth, sem_ids):
@@ -441,29 +451,35 @@ class Pipeline:
         depth = frames["depth"]                        # (S, k, h, w)
         S, k, h, w = depth.shape
         p, t = self.n_points, self.n_tail_points
-        points_w = geometry.unproject(depth, frames["extrinsics"],
-                                      frames["intrinsics"])  # (S, k, n, 3)
-        eyes = frames["extrinsics"][..., :3, 3].float()
-        points_v = geometry.sample_ray_points(
-            points_w, eyes, rv.origin[:, None, None],
-            rv.resolution[:, None, None, None], p).reshape(S, k * h * w, p,
-                                                           3)
-        cr = rowvol.corner_rows_scenes(points_v, layout)
+        with tracing.span("rowops.front"):
+            points_w = geometry.unproject(
+                depth, frames["extrinsics"],
+                frames["intrinsics"])                  # (S, k, n, 3)
+            eyes = frames["extrinsics"][..., :3, 3].float()
+            points_v = geometry.sample_ray_points(
+                points_w, eyes, rv.origin[:, None, None],
+                rv.resolution[:, None, None, None], p).reshape(
+                    S, k * h * w, p, 3)
+            cr = rowvol.corner_rows_scenes(points_v, layout)
         if shadow_carry is not None:
             prev_shadow, dirty = shadow_carry
-            shadow = rowvol.build_shadow_dirty_v(rv.geo, prev_shadow, dirty,
-                                                 layout)
-            new_carry = (shadow, torch.stack([
-                rowvol.dirty_tile_mask(pv[:, :t], layout)
-                for pv in points_v]))
+            with tracing.span("k1"):
+                shadow = rowvol.build_shadow_dirty_v(rv.geo, prev_shadow,
+                                                     dirty, layout)
+            with tracing.span("rowops.dirty"):
+                new_carry = (shadow, torch.stack([
+                    rowvol.dirty_tile_mask(pv[:, :t], layout)
+                    for pv in points_v]))
         else:
-            shadow = rowvol.build_shadow_v(rv.geo, layout)
+            with tracing.span("k1"):
+                shadow = rowvol.build_shadow_v(rv.geo, layout)
             new_carry = None
-        fv, fw = rowvol.extract_rows(shadow, cr, self.init_value,
-                                     geometry.INVALID_TSDF_FILL)
-        inputs = self._row_net_inputs(fv, fw, depth, sem_ids)
-        ray_mask = (torch.where(frames["mask"], depth, 0.0).reshape(-1)
-                    != 0.0)
+        with tracing.span("rowops.extract"):
+            fv, fw = rowvol.extract_rows(shadow, cr, self.init_value,
+                                         geometry.INVALID_TSDF_FILL)
+            inputs = self._row_net_inputs(fv, fw, depth, sem_ids)
+            ray_mask = (torch.where(frames["mask"], depth, 0.0).reshape(-1)
+                        != 0.0)
         return cr, inputs, ray_mask, new_carry
 
     def _estimate_updates(self, cr, inputs, sem_ids, scores, ray_mask,
@@ -472,21 +488,24 @@ class Pipeline:
         the clipped tail estimates (and with semantics the packed keys)."""
         t = self.n_tail_points
         est = self._network_estimate(inputs)
-        upd_values = torch.clamp(est[..., :t], -self.init_value,
-                                 self.init_value).reshape(-1, t)
-        sem_key = (pack_semantic_key(scores.reshape(-1), sem_ids.reshape(-1))
-                   if self.semantics else None)
-        return rowvol.row_updates(cr, upd_values, sem_key, ray_mask, t,
-                                  geo_dtype, do_sem)
+        with tracing.span("rowops.updates"):
+            upd_values = torch.clamp(est[..., :t], -self.init_value,
+                                     self.init_value).reshape(-1, t)
+            sem_key = (pack_semantic_key(scores.reshape(-1),
+                                         sem_ids.reshape(-1))
+                       if self.semantics else None)
+            return rowvol.row_updates(cr, upd_values, sem_key, ray_mask, t,
+                                      geo_dtype, do_sem)
 
     def _integrate_estimate(self, rv: rowvol.RowVolume, cr, inputs, sem_ids,
                             scores, ray_mask, do_sem=None) -> None:
         """:meth:`_estimate_updates` into the slot state in place: one geo
         scatter-add, one key scatter-max."""
-        rowvol.scatter_updates(
-            rv.geo.view(-1, 128), rv.key.view(-1, 128),
-            self._estimate_updates(cr, inputs, sem_ids, scores, ray_mask,
-                                   rv.geo.dtype, do_sem))
+        upd = self._estimate_updates(cr, inputs, sem_ids, scores, ray_mask,
+                                     rv.geo.dtype, do_sem)
+        with tracing.span("rowops.scatter"):
+            rowvol.scatter_updates(rv.geo.view(-1, 128),
+                                   rv.key.view(-1, 128), upd)
 
     def step_fuse_rows_block_impl(self, layout, rv: rowvol.RowVolume, frames,
                                   shadow_carry=None, do_sem=None):
@@ -538,14 +557,17 @@ class Pipeline:
                        if self.semantics and self.use_semantics else None)
             cr, fv, fw, inputs, ray_mask, new_carry = self._row_frontend(
                 layout, rv, frame, sem_ids, shadow_carry)
-            gv, _ = rowvol.extract_rows(gt_shadow, cr, self.init_value,
-                                        geometry.INVALID_TSDF_FILL)
+            with tracing.span("rowops.extract"):
+                gv, _ = rowvol.extract_rows(gt_shadow, cr, self.init_value,
+                                            geometry.INVALID_TSDF_FILL)
         est = self._network_estimate(inputs, train=True)
-        loss = fusion_loss(_fused_for_loss(fv, fw, est, self.init_value),
-                           gv[None, :, :p], ray_mask[None],
-                           **self.loss_weights)
-        loss.backward()
-        with torch.no_grad():
+        with tracing.span("train.loss"):
+            loss = fusion_loss(_fused_for_loss(fv, fw, est, self.init_value),
+                               gv[None, :, :p], ray_mask[None],
+                               **self.loss_weights)
+        with tracing.span("train.backward"):
+            loss.backward()
+        with torch.no_grad(), tracing.span("rowops.integrate"):
             upd_values = torch.clamp(est.detach()[0, :, :t], -self.init_value,
                                      self.init_value)
             geo, key = rowvol.integrate_rows(rv.geo, rv.key, cr, upd_values,
@@ -722,27 +744,31 @@ class Pipeline:
 
     def _fuse_rows(self, layout, stream: RowStream, frames, step,
                    axis: int) -> RowStream:
-        """The block loop over time axis ``axis`` of ``frames``."""
-        frames = self._sem_prepass_frames(frames)
-        decimate = self.semantics and self.sem_every > 1
-        T = frames["depth"].shape[axis]
+        """The block loop over time axis ``axis`` of ``frames``: one
+        ``chunk`` span, a ``block`` span a block."""
+        shape = frames["depth"].shape
+        T = shape[axis]
         kb = self.frame_block
-        pad = (-T) % kb
-        if pad:
-            frames = {key: torch.cat([x, x.narrow(axis, T - 1, 1).expand(
-                x.shape[:axis] + (pad,) + x.shape[axis + 1:])], axis)
-                for key, x in frames.items()}
-            frames["mask"].narrow(axis, T, pad).fill_(False)
-        for idx in range((T + pad) // kb):
-            block = {key: x.narrow(axis, idx * kb, kb)
-                     for key, x in frames.items()}
-            carry = (None if stream.shadow is None
-                     else (stream.shadow, stream.dirty))
-            do_sem = (idx % self.sem_every == 0) if decimate else None
-            rv, carry = step(layout, stream.rv, block, shadow_carry=carry,
-                             do_sem=do_sem)
-            stream = (RowStream(rv, None, None) if carry is None
-                      else RowStream(rv, carry[0], carry[1]))
+        with tracing.chunk(T * shape[0] if axis else T, kb):
+            frames = self._sem_prepass_frames(frames)
+            decimate = self.semantics and self.sem_every > 1
+            pad = (-T) % kb
+            if pad:
+                frames = {key: torch.cat([x, x.narrow(axis, T - 1, 1).expand(
+                    x.shape[:axis] + (pad,) + x.shape[axis + 1:])], axis)
+                    for key, x in frames.items()}
+                frames["mask"].narrow(axis, T, pad).fill_(False)
+            for idx in range((T + pad) // kb):
+                with tracing.block():
+                    block = {key: x.narrow(axis, idx * kb, kb)
+                             for key, x in frames.items()}
+                    carry = (None if stream.shadow is None
+                             else (stream.shadow, stream.dirty))
+                    do_sem = (idx % self.sem_every == 0) if decimate else None
+                    rv, carry = step(layout, stream.rv, block,
+                                     shadow_carry=carry, do_sem=do_sem)
+                    stream = (RowStream(rv, None, None) if carry is None
+                              else RowStream(rv, carry[0], carry[1]))
         return stream
 
     def fuse_sequence(self, volume: SceneVolume, frames) -> SceneVolume:
@@ -851,23 +877,26 @@ class Pipeline:
         stay the caller's, carried across chunks. A float32 net on a card
         trains with cuDNN off (``models/layers.training_convolutions``).
         """
-        if self.use_semantics:
-            with torch.no_grad():
-                frames = self._sem_prepass_frames(frames)
         T = frames["depth"].shape[0]
-        loss_sum = torch.zeros((), device=self.device)
-        with self._training():
-            for i in range(T):
-                if bool(reset_flags[i]):
-                    stream = self._reset_stream(stream)
-                frame = {key: x[i:i + 1] for key, x in frames.items()}
-                carry = (None if stream.shadow is None
-                         else (stream.shadow, stream.dirty))
-                loss, rv, carry = self.step_train_rows_impl(
-                    layout, stream.rv, gt_shadow, frame, shadow_carry=carry)
-                stream = (RowStream(rv, None, None) if carry is None
-                          else RowStream(rv, carry[0], carry[1]))
-                loss_sum = loss_sum + loss
+        with tracing.chunk(T):
+            if self.use_semantics:
+                with torch.no_grad():
+                    frames = self._sem_prepass_frames(frames)
+            loss_sum = torch.zeros((), device=self.device)
+            with self._training():
+                for i in range(T):
+                    with tracing.span("train.frame"):
+                        if bool(reset_flags[i]):
+                            stream = self._reset_stream(stream)
+                        frame = {key: x[i:i + 1] for key, x in frames.items()}
+                        carry = (None if stream.shadow is None
+                                 else (stream.shadow, stream.dirty))
+                        loss, rv, carry = self.step_train_rows_impl(
+                            layout, stream.rv, gt_shadow, frame,
+                            shadow_carry=carry)
+                        stream = (RowStream(rv, None, None) if carry is None
+                                  else RowStream(rv, carry[0], carry[1]))
+                        loss_sum = loss_sum + loss
         return loss_sum, stream
 
     def train_sequence(self, volume: SceneVolume, gt_tsdf: torch.Tensor,

@@ -47,6 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import tracing
+
 __all__ = ["fold_v3", "apply_v3", "apply_v3_train", "FastV3",
            "exact_matmuls"]
 
@@ -302,16 +304,17 @@ def _conv3x3_acc(x, w, rates, mode):
     a = w.permute(0, 2, 1).reshape(9 * N, K)          # rows (tap, channel)
     y = _col_product(a, x.reshape(B, H * W, K).transpose(1, 2)).view(
         B, 9, G, N // G, H, W)
-    acc = y.new_zeros((B, G, N // G, H, W))
-    for t in range(9):
-        i, j = divmod(t, 3)
-        for g, d in enumerate(rates):
-            dy, dx = (i - 1) * d, (j - 1) * d
-            h0, h1 = max(0, -dy), min(H, H - dy)
-            w0, w1 = max(0, -dx), min(W, W - dx)
-            if h0 < h1 and w0 < w1:
-                acc[:, g, :, h0:h1, w0:w1] += \
-                    y[:, t, g, :, h0 + dy:h1 + dy, w0 + dx:w1 + dx]
+    with tracing.span("fusionnet.taps"):
+        acc = y.new_zeros((B, G, N // G, H, W))
+        for t in range(9):
+            i, j = divmod(t, 3)
+            for g, d in enumerate(rates):
+                dy, dx = (i - 1) * d, (j - 1) * d
+                h0, h1 = max(0, -dy), min(H, H - dy)
+                w0, w1 = max(0, -dx), min(W, W - dx)
+                if h0 < h1 and w0 < w1:
+                    acc[:, g, :, h0:h1, w0:w1] += \
+                        y[:, t, g, :, h0 + dy:h1 + dy, w0 + dx:w1 + dx]
     return acc.reshape(B, N, H, W).permute(0, 2, 3, 1).contiguous()
 
 
@@ -399,15 +402,20 @@ def apply_v3(folded: Dict, inputs: Dict[str, torch.Tensor], *,
     n_points) float32 (tanh output times output_scale)."""
     meta = folded["meta"]
     with exact_matmuls():
-        ys = [_run_head(x, folded["heads"][n], dtype, conv3x3)
-              for x, n in zip(_head_inputs(inputs, meta["use_semantics"],
-                                           dtype), folded["heads"])]
-        y = _run_vortex(torch.cat(ys, -1), folded["vortex"], dtype, conv3x3)
-        for i, pred in enumerate(folded["preds"]):
-            y = _conv1x1(y, pred[0], "leaky", dtype)
-            y = _conv1x1(y, pred[1], "leaky", dtype)
-            if i == len(folded["preds"]) - 1:
-                y = _conv1x1(y, pred[2], "tanh", dtype)
+        ys = []
+        for x, n in zip(_head_inputs(inputs, meta["use_semantics"], dtype),
+                        folded["heads"]):
+            with tracing.span("fusionnet.head"):
+                ys.append(_run_head(x, folded["heads"][n], dtype, conv3x3))
+        with tracing.span("fusionnet.vortex"):
+            y = _run_vortex(torch.cat(ys, -1), folded["vortex"], dtype,
+                            conv3x3)
+        with tracing.span("fusionnet.pred"):
+            for i, pred in enumerate(folded["preds"]):
+                y = _conv1x1(y, pred[0], "leaky", dtype)
+                y = _conv1x1(y, pred[1], "leaky", dtype)
+                if i == len(folded["preds"]) - 1:
+                    y = _conv1x1(y, pred[2], "tanh", dtype)
     B, H, W, _ = y.shape
     return (meta["output_scale"] * y).reshape(B, H * W, meta["n_points"])
 
