@@ -16,7 +16,12 @@ traces reduced to them, and a NaN/Inf guard.
   synchronises the device nor reads a value back from it. Spans are
   opened on one thread at a time.
 - **Counters** (host integers): ``frames`` (real frames handed in, the
-  padding of ``frame_block`` left out), ``blocks``, ``chunks``.
+  padding of ``frame_block`` left out), ``blocks``, ``chunks``; through
+  :func:`count`, made at the first count, ``fusionnet.eager``,
+  ``fusionnet.captures`` and ``fusionnet.replays`` (the folded
+  executor's calls that ran eager, its CUDA graph captures, and its calls
+  that replayed one; ``models/fusionnet_fast.FastV3``). Off, a count is
+  one check of the module global, as a span is.
 - :func:`reduce_profile` reduces a ``torch.profiler`` trace taken with
   labels to numbers per span name: the host's launch calls (kernel
   launches, async copies and sets; a graph launch once), the device time
@@ -50,8 +55,9 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-__all__ = ["Tracer", "enabled", "span", "chunk", "block", "reduce_profile",
-           "reduce_events", "profile_events", "trace", "nan_guard"]
+__all__ = ["Tracer", "enabled", "span", "chunk", "block", "count",
+           "reduce_profile", "reduce_events", "profile_events", "trace",
+           "nan_guard"]
 
 LABEL = "sf:"          # prefix of a span's profiler range
 
@@ -198,6 +204,13 @@ def block():
         return _OFF
     tr.counters["blocks"] += 1
     return _Span(tr, "block", None)
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name`` (made at its first count)."""
+    tr = _TRACER
+    if tr is not None:
+        tr.counters[name] = tr.counters.get(name, 0) + 1
 
 
 # -- a profiler's trace, reduced to the spans ---------------------------------

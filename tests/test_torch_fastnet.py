@@ -11,6 +11,8 @@ the port's module by ``utils/convert.py``. The JAX executor runs eagerly
 on the CPU, as its own tests run it.
 """
 
+import sys
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -23,6 +25,7 @@ from segfusion_tpu.models.fusionnet import FusionNetV3 as JFusionNetV3
 from segfusion_tpu_torch.config import Config
 from segfusion_tpu_torch.core.pipeline import Pipeline
 from segfusion_tpu_torch.models import fusionnet_fast as ff
+from segfusion_tpu_torch.utils import tracing
 from segfusion_tpu_torch.utils.convert import fusionnet_from_flax
 from tests.test_torch_nets import (_fusion_inputs,  # noqa: F401
                                    one_torch_thread, random_variables)
@@ -195,3 +198,181 @@ def test_fused_net_off_is_the_eager_module(compute_dtype):
         want = fusionnet_from_flax(params, stats, fm).to(dt).eval()(
             _torch(data)).reshape(1, H * W, -1)[..., :N_POINTS]
     assert torch.equal(got, want)
+
+
+# -- FastV3's CUDA graphs, on the CPU through a fake capture ------------------
+
+@pytest.fixture
+def fake_graphs(monkeypatch):
+    """``FastV3`` takes its graph path on CPU tensors: ``_on_card`` says
+    yes, and ``_capture`` returns a fake graph whose replay re-runs the
+    captured callable into its static output. Yields the captures made."""
+    captures = []
+
+    def capture(fn, device):
+        out = fn()
+        captures.append(device)
+        return (lambda: out.copy_(fn())), out
+
+    monkeypatch.setattr(ff, "_on_card", lambda inputs: True)
+    monkeypatch.setattr(ff, "_capture", capture)
+    yield captures
+
+
+def _graph_setup(use_semantics=False, b=2, seed=7):
+    """(FastV3 in bf16, its folded weights, torch inputs) at gf 2."""
+    _, data, params, stats, fm = _net_setup(2, use_semantics, seed, b=b)
+    net = fusionnet_from_flax(params, stats, fm).eval()
+    return ff.FastV3(net), ff.fold_v3(net), _torch(data)
+
+
+def _graph_counts(tr):
+    """The executor's counters of tracer ``tr``."""
+    return {k: v for k, v in tr.counters.items()
+            if k.startswith("fusionnet.")}
+
+
+def _eager(folded, inputs):
+    with torch.no_grad():
+        return ff.apply_v3(folded, inputs)
+
+
+def _frame(inputs, i, shift=0.0):
+    """Frame ``i`` of ``inputs`` as a batch of one, its values moved by
+    ``shift``."""
+    return {k: v[i:i + 1] + shift for k, v in inputs.items()}
+
+
+@pytest.mark.parametrize("use_semantics", [True, False],
+                         ids=["sem", "nosem"])
+def test_graph_replays_equal_apply_v3(fake_graphs, use_semantics):
+    """Calls at one signature with other inputs each: the first runs
+    eager, the second captures and replays, the rest replay; every
+    result equals ``apply_v3`` bit for bit after all calls ran (a stale
+    static input or an output the next replay overwrites would differ),
+    and the counters count one eager call, one capture, three replays."""
+    fast, folded, data = _graph_setup(use_semantics)
+    frames = [_frame(data, 0), _frame(data, 1), _frame(data, 0, 0.25),
+              _frame(data, 1, -0.5)]
+    with tracing.enabled() as tr, torch.no_grad():
+        got = [fast(x) for x in frames]
+    assert len(fake_graphs) == 1
+    assert _graph_counts(tr) == {"fusionnet.eager": 1, "fusionnet.captures": 1,
+                           "fusionnet.replays": 3}
+    names = [s["name"] for s in tr.spans]
+    assert names.count("fusionnet.capture") == 1
+    assert names.count("fusionnet.replay") == 3
+    for x, y in zip(frames, got):
+        assert torch.equal(y, _eager(folded, x))
+    assert not torch.equal(got[0], got[2])
+
+
+def test_graph_per_signature_least_recent_dropped(fake_graphs):
+    """A new shape captures a graph of its own; past ``_GRAPHS_MAX``
+    signatures the least recently used is dropped with its graph, and
+    meeting it again runs eager before it captures anew."""
+    fast, folded, data = _graph_setup()
+    shapes = [{k: v[:b, :h] for k, v in data.items()}
+              for b, h in ((1, 32), (2, 32), (1, 16), (2, 16), (1, 8))]
+    with torch.no_grad():
+        for x in shapes[:2]:
+            fast(x), fast(x)
+        assert len(fake_graphs) == 2
+        for x in shapes[2:4]:
+            fast(x), fast(x)
+        assert len(fast._graphs) == ff._GRAPHS_MAX == 4
+        fast(shapes[4])                       # seen once: drops shapes[0]
+        assert len(fast._graphs) == 4 and len(fake_graphs) == 4
+        with tracing.enabled() as tr:
+            got = fast(shapes[0])
+            assert _graph_counts(tr) == {"fusionnet.eager": 1}
+            got = fast(shapes[0])
+            assert _graph_counts(tr)["fusionnet.captures"] == 1
+    assert len(fake_graphs) == 5 and len(fast._graphs) == 4
+    assert torch.equal(got, _eager(folded, shapes[0]))
+
+
+def test_moved_buffers_drop_every_graph(fake_graphs):
+    """A buffer replaced by a copy at another address: no graph that
+    read the old one replays; the next call runs eager."""
+    fast, folded, data = _graph_setup()
+    x = _frame(data, 0)
+    with torch.no_grad():
+        fast(x), fast(x)
+        fast.w0 = fast.w0.clone()
+        with tracing.enabled() as tr:
+            got = fast(x)
+    assert _graph_counts(tr) == {"fusionnet.eager": 1}
+    assert list(fast._graphs.values()) == [ff._SEEN]
+    assert torch.equal(got, _eager(folded, x))
+
+
+def test_refold_starts_without_graphs(fake_graphs):
+    """``prepare_params`` after an in-place parameter change returns a
+    new executor with no graphs, whose replays give the new fold's
+    numbers."""
+    _, data, params, stats, fm = _net_setup(2, True, seed=8)
+    pipe = Pipeline(Config(_pipeline_config(2)), device="cpu",
+                    fusion_net=fusionnet_from_flax(params, stats, fm))
+    x = _torch(data)
+    with torch.no_grad():
+        pipe._network_estimate(x), pipe._network_estimate(x)
+        fast = pipe.prepare_params()
+        assert len(fake_graphs) == 1 and len(fast._graphs) == 1
+        pipe.fusion_net.Pred_0.Conv_0.weight.add_(0.5)
+        refold = pipe.prepare_params()
+        assert refold is not fast and not refold._graphs
+        got = [pipe._network_estimate(x) for _ in range(3)]
+    assert len(fake_graphs) == 2
+    want = _eager(ff.fold_v3(pipe.fusion_net), x)[..., :N_POINTS]
+    for y in got:
+        assert torch.equal(y, want)
+    assert not torch.equal(got[0], fast(x)[..., :N_POINTS])
+
+
+@pytest.mark.parametrize("case", ["grad", "flop_counter", "nan_guard",
+                                  "cpu"])
+def test_graph_not_taken(fake_graphs, monkeypatch, case):
+    """Gradients on, an active dispatch mode (``FlopCounterMode``,
+    ``tracing.nan_guard``) or CPU tensors: every call runs eager and
+    counts as such; nothing is captured."""
+    from torch.utils.flop_counter import FlopCounterMode
+    fast, folded, data = _graph_setup()
+    x = _frame(data, 0)
+    call = fast
+    ctx = torch.no_grad()
+    if case == "grad":
+        ctx = torch.enable_grad()
+    elif case == "flop_counter":
+        ctx = FlopCounterMode(display=False)
+    elif case == "nan_guard":
+        call = tracing.nan_guard(fast)
+    else:
+        monkeypatch.undo()
+    with tracing.enabled() as tr, ctx:
+        got = [call(x) for _ in range(3)]
+    assert fake_graphs == [] and not fast._graphs
+    assert _graph_counts(tr) == {"fusionnet.eager": 3}
+    for y in got:
+        assert torch.equal(y, _eager(folded, x))
+
+
+def test_count_off_records_nothing():
+    """Off, a count is the one check of the module global: no tracer is
+    made, no builtin called; on, counters start at the first count."""
+    calls = []
+
+    def watch(frame, event, arg):
+        if event == "c_call" and frame.f_code.co_filename == tracing.__file__:
+            calls.append(arg)
+    sys.setprofile(watch)
+    try:
+        tracing.count("fusionnet.replays")
+    finally:
+        sys.setprofile(None)
+    assert calls == [] and tracing._TRACER is None
+    with tracing.enabled() as tr:
+        tracing.count("fusionnet.replays")
+        tracing.count("fusionnet.replays")
+    assert tr.counters == {"frames": 0, "blocks": 0, "chunks": 0,
+                           "fusionnet.replays": 2}

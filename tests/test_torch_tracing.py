@@ -156,7 +156,8 @@ def test_spans_nest_and_carry_their_chunk(scene):
         _stream(_config("predict"), scene, segmenter=_Segmenter())
     spans = tr.spans
     assert set(PARENTS) == {s["name"] for s in spans}
-    assert tr.counters == {"frames": 6, "blocks": 6, "chunks": 2}
+    assert tr.counters == {"frames": 6, "blocks": 6, "chunks": 2,
+                           "fusionnet.eager": 6}
     for s in spans:
         parent = spans[s["parent"]] if s["parent"] >= 0 else None
         assert (parent and parent["name"]) in PARENTS[s["name"]], s
@@ -183,7 +184,8 @@ def test_frames_count_the_real_frames_of_a_padded_chunk(scene):
         _stream(_config(frame_block=2), scene, chunks=((0, 3),))
         with tracing.span("after"):
             pass
-    assert tr.counters == {"frames": 3, "blocks": 2, "chunks": 1}
+    assert tr.counters == {"frames": 3, "blocks": 2, "chunks": 1,
+                           "fusionnet.eager": 2}
     assert tr.spans[-1] == dict(tr.spans[-1], name="after", parent=-1,
                                 chunk=None)
     (root,) = [s for s in tr.spans if s["name"] == "chunk"]
@@ -202,7 +204,8 @@ def test_tracing_leaves_the_state_bit_identical(scene, labels):
     with tracing.enabled(labels=labels) as tr:
         on = _state(_stream(cfg, scene))
         loss_on, train_on, grads_on = _train(cfg, scene)
-    assert tr.counters == {"frames": 12, "blocks": 6, "chunks": 3}
+    assert tr.counters == {"frames": 12, "blocks": 6, "chunks": 3,
+                           "fusionnet.eager": 6}
     names = {s["name"] for s in tr.spans}
     assert {"train.frame", "train.loss", "train.backward",
             "rowops.integrate"} <= names
@@ -331,7 +334,8 @@ def test_trace_writes_the_spans_of_a_stream(tmp_path, scene):
         _stream(_config(), scene)
     assert tracing._TRACER is None
     data = json.loads((tmp_path / "tr" / "spans.json").read_text())
-    assert data["counters"] == {"frames": 6, "blocks": 6, "chunks": 2}
+    assert data["counters"] == {"frames": 6, "blocks": 6, "chunks": 2,
+                                "fusionnet.eager": 6}
     assert len(data["spans"]) == sum(s["count"]
                                      for s in data["summary"].values())
     red = data["reduction"]["spans"]
