@@ -298,18 +298,56 @@ def per_layer(run: Run, trace: dict) -> Dict[str, float]:
     return out
 
 
+def k1_bytes(run: Run, start: int, frames: int, carry) -> float:
+    """K1's bytes over frames ``start`` .. ``start + frames - 1`` of the
+    traffic, handed to the port again one block at a time: before each
+    block, the share of the tiles its dirty carry marks (``carry`` for the
+    first block, ``RowStream.dirty`` after) times the geo and shadow bytes
+    (``chip_smoke.py``'s accounting); a block without a carry rebuilds
+    every tile. The blocks are those of the stretch's chunks, so each K1
+    call is counted with the mask it was given there."""
+    lay = run.layout
+    per_call = (lay.geo_rows * 128 * run.pipe.geo_dtype.itemsize
+                + lay.shadow_rows * 128 * 4)
+    n, kb = chunk_size(run), run.pipe.frame_block
+    total = 0.0
+    for c in range(start, start + frames, n):
+        for b in range(c, min(c + n, start + frames), kb):
+            dirty = carry if b == start else run.stream.dirty
+            share = 1.0 if dirty is None else float(
+                dirty[:-1].float().mean())
+            total += share * per_call
+            fuse(run, b, min(kb, c + n - b))
+    return total
+
+
 def traced_stretch(run: Run, units: int) -> dict:
-    """``units`` more units of the traffic traced on the device (its busy
-    seconds, the kernels by time, K1's bytes), then ``units`` more traced
-    with the host's layer labels too (the idle gaps by the layer the host
-    was in; the host's tracing slows the host, so they are read apart)."""
-    with spans.Spans(run, mode="count") as sp:
-        prof, window = spans.profile(lambda: run_window(run, 0.0, units),
-                                     run.device, host=False)
-    with spans.Spans(run, mode="labels"):
-        gprof, gwindow = spans.profile(lambda: run_window(run, 0.0, units),
-                                       run.device, host=True)
-    return spans.summarise(prof, window, sp, run, gprof, gwindow)
+    """``units`` more units of the traffic traced on the device alone (its
+    busy seconds, the kernels by time, K1's device time), the same frames
+    again to count K1's bytes, then ``units`` more under the port's
+    labelled spans and the host's profiler (launches, device ms and idle
+    gaps by span; the host's tracing slows the host, so they are read
+    apart)."""
+    from segfusion_tpu_torch.utils import tracing
+    start = len(run.order)
+    carry = None if run.stream.dirty is None else run.stream.dirty.clone()
+    prof, window = spans.profile(lambda: run_window(run, 0.0, units),
+                                 run.device, host=False)
+    device = spans.device_readings(prof, window)
+    kernels = device.pop("kernels")
+    k1 = {"device_s": device.pop("k1_device_s"),
+          "bytes": k1_bytes(run, start, window["frames"], carry)}
+    with tracing.enabled(labels=True) as tr:
+        lprof, _ = spans.profile(lambda: run_window(run, 0.0, units),
+                                 run.device, host=True)
+    reduction = tracing.reduce_profile(lprof)
+    return dict(device, k1=k1,
+                labelled=spans.labelled_readings(reduction,
+                                                 tr.counters["frames"]),
+                breakdown={
+                    "device_ops": [[n, s] for n, s in
+                                   kernels.most_common(10)],
+                    "idle_gaps": spans.idle_gaps(reduction)})
 
 
 def result_line(correct: bool, attempted: int, failed: int,
@@ -341,11 +379,9 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device,
     dev = torch.device(device)
     run = build(cell, seed, dev)
     warm_up(run)
-    if trace:       # the traced stretch's shapes and the profiler itself
-        traced_stretch(run, 1)
-    elif traces_window(run):    # the device trace's start-up, out of the window
+    if not trace and traces_window(run):
+        # the device trace's start-up, out of the window
         spans.profile(lambda: run_window(run, 0.0, 1), dev, host=False)
-    if trace or traces_window(run):
         run.order.clear()
         run.stream = None
         run.stream = new_stream(run)
@@ -353,12 +389,14 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device,
     setup_s = time.perf_counter() - t_start
     trace_data = None
     if trace:
-        with spans.Spans(run, mode="events") as sp:
+        from segfusion_tpu_torch.utils import tracing
+        with tracing.enabled() as tr:
             window = run_window(run, seconds)
-            span_ms = sp.totals()
+        # the stretches' shapes and the profiler's start-up, after the
+        # window: a profiler session slows the host's later launches
+        traced_stretch(run, 1)
         stretch = traced_stretch(run, int(cell.traffic["profile_units"]))
-        trace_data = dict(stretch, spans_ms=span_ms,
-                          frames_spanned=window["frames"],
+        trace_data = dict(stretch, host=spans.host_readings(tr),
                           window_fps=window["fps"],
                           service_ms=[1e3 * s for s in
                                       window.get("service_s", [])],

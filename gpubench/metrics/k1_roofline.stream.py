@@ -1,7 +1,9 @@
 """K1 (``csrc/shadow_build.cu`` ``shadow_build_kernel``, the dirty shadow
-build) against its byte bound: each call's dirty share of the tiles times
-the geo and shadow bytes (``chip_smoke.py``'s accounting), summed over
-the traced stretch, at 3.35 TB/s, over the kernel's device time."""
+build) against its byte bound: each call's dirty share of the tiles (the
+dirty carry the port's ``RowStream`` hands it, read before each block as
+the stretch's frames are handed in again) times the geo and shadow bytes
+(``chip_smoke.py``'s accounting), summed over the device-only stretch, at
+3.35 TB/s, over the kernel's device time there."""
 
 import importlib.util
 import os

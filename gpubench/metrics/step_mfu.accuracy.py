@@ -1,6 +1,7 @@
 """The whole step's share of the card's bf16 peak: the reference nets'
 FLOPs a frame (counted once on the meta device) times the frames of the
-traced stretch, over its wall time, against 989 TFLOP/s."""
+traced stretch, over its wall time, against 989 TFLOP/s; nothing where
+the trace saw no device work."""
 
 import importlib.util
 import os
@@ -12,7 +13,8 @@ _spec.loader.exec_module(_peaks)
 
 
 def read(trace):
-    if not trace.get("wall_s") or not trace.get("flops_per_frame"):
+    if not (trace.get("wall_s") and trace.get("busy_s")
+            and trace.get("flops_per_frame")):
         return None
     rate = trace["flops_per_frame"] * trace["frames"] / trace["wall_s"]
     return 100.0 * rate / _peaks.BF16_FLOPS

@@ -62,6 +62,8 @@ def test_cells_and_metrics():
         assert set(m.get("workloads", cells)) <= set(cells)
     for m in SPEC["per_layer"]:
         assert UNIT.match(m["unit"])
+        assert m["source"] in ("device_trace", "program_span",
+                               "program_counter", "host_clock")
         assert (BENCH / "metrics" / f"{m['name']}.py").exists()
         assert m["moves"] in e2e
         for w in m["workloads"]:

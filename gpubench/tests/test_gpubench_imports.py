@@ -1,6 +1,8 @@
 """No module of the benchmark imports JAX, Flax or the JAX package, and
 the reference imports nothing of the port: top-level names compared
-whole (``segfusion_tpu_torch`` begins with ``segfusion_tpu``)."""
+whole (``segfusion_tpu_torch`` begins with ``segfusion_tpu``). The
+harness reads the port through its own spans and counters, and replaces
+no attribute of it."""
 
 import ast
 from pathlib import Path
@@ -27,6 +29,15 @@ def _imports(path):
     BENCH)))
 def test_no_jax(path):
     assert not set(_imports(path)) & set(harness.FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", [p for p in FILES if "tests" not in p.parts],
+                         ids=lambda p: str(p.relative_to(BENCH)))
+def test_no_attribute_replaced(path):
+    tree = ast.parse(path.read_text(), str(path))
+    calls = {n.func.id for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name)}
+    assert not calls & {"setattr", "delattr"}
 
 
 @pytest.mark.parametrize("path", sorted((BENCH / "reference").rglob(
