@@ -17,8 +17,9 @@ port's stream is freed. The numbers (``compare``):
   ``tsdf_gap_rel``, that gap over ``bf16_probe`` + 1e-4. ``bf16_probe``
   is measured by the reference itself on every 8th frame of its replay:
   the mean gap between its clipped estimates and those of the same frame
-  with every convolution's operands rounded to bfloat16 (AdapNet++'s
-  labels too, where the cell labels). Random weights leave FusionNet's
+  with every product's operands rounded to bfloat16 (convolutions, linear
+  layers and attention's two products; the segmenter's labels too, where
+  the cell labels). Random weights leave FusionNet's
   sensitivity to rounding to the seed (the probe spans 1e-5 to 1e-2), so
   the gap is compared in units of what bfloat16, the precision the
   configurations state, does to these nets on these frames.
@@ -26,9 +27,13 @@ port's stream is freed. The numbers (``compare``):
   class differs, and the mean gap of their scores (AdapNet++'s labels and
   softmax scores through the key scatter-max), where the cell labels.
 
-The precision control (``control``) is the reference with every
-convolution's input and weights rounded to float8 (e4m3, one scale per
-tensor): the step below the bfloat16 the configurations state.
+The precision control (``control``) is the reference with every product's
+operands rounded to float8 (e4m3, one scale per tensor): the step below
+the bfloat16 the configurations state.
+
+The nets are found by name (``architectures``): each cell's fusion net
+and segmenter come from their own files, called the same way whatever
+the architecture.
 """
 
 from __future__ import annotations
@@ -38,8 +43,9 @@ from typing import Dict, Optional
 
 import torch
 
+from . import architectures
 from .reference import fusion as rf
-from .reference import nets
+from .reference.layers import plain_precision, set_quantiser
 
 __all__ = ["compare", "compare_run", "replay", "fp8", "flops_per_frame",
            "reference_nets"]
@@ -65,18 +71,20 @@ def reference_nets(conf: dict, fusion_state, seg_state, device,
                    quantiser=None):
     """The reference's nets with the run's weights (float32 copies)."""
     c = conf["config"]
+    fusion_file = architectures.fusion(c)
+    seg_file = None if seg_state is None else architectures.segmenter(c)
     with torch.device("meta"):
-        fnet = nets.fusion_net_for(c["FUSION_MODEL"])
+        fnet = fusion_file.reference(c["FUSION_MODEL"])
     fnet.load_state_dict({k: v.float() if v.is_floating_point() else v
                           for k, v in fusion_state.items()}, assign=True)
-    fnet = nets.set_quantiser(fnet.to(device).eval(), quantiser)
+    fnet = set_quantiser(fnet.to(device).eval(), quantiser)
     seg = None
-    if seg_state is not None:
+    if seg_file is not None:
         with torch.device("meta"):
-            seg = nets.segmenter_for(c["SEMANTIC_2D_MODEL"])
+            seg = seg_file.reference(c["SEMANTIC_2D_MODEL"])
         seg.load_state_dict({k: v.float() if v.is_floating_point() else v
                              for k, v in seg_state.items()}, assign=True)
-        seg = nets.set_quantiser(seg.to(device).eval(), quantiser)
+        seg = set_quantiser(seg.to(device).eval(), quantiser)
     return fnet, seg
 
 
@@ -85,7 +93,7 @@ def replay(conf: dict, traffic: dict, fusion_state, seg_state, orbit,
            order, device, quantiser=None) -> rf.Volume:
     """The reference's volume after the frames ``order`` (orbit indices)."""
     c, a = conf["config"], conf["assumed"]
-    with nets.plain_precision():
+    with plain_precision():
         fnet, seg = reference_nets(conf, fusion_state, seg_state, device,
                                    quantiser)
         sem = {}
@@ -103,7 +111,7 @@ def replay(conf: dict, traffic: dict, fusion_state, seg_state, orbit,
             if quantiser is None else set()
         probe_ids = {}
         if seg is not None and probes:     # the segmenter in bf16 too
-            nets.set_quantiser(seg, rf.bf16_round)
+            set_quantiser(seg, rf.bf16_round)
             used = sorted(probes)
             for i in range(0, len(used), _SEM_BATCH):
                 idx = torch.tensor(used[i:i + _SEM_BATCH], device=device)
@@ -111,7 +119,7 @@ def replay(conf: dict, traffic: dict, fusion_state, seg_state, orbit,
                           orbit["depth_input"][idx]).argmax(-1)
                 for j, k in enumerate(used[i:i + _SEM_BATCH]):
                     probe_ids[k] = ids[j].reshape(-1)
-            nets.set_quantiser(seg, None)
+            set_quantiser(seg, None)
         fm = c["FUSION_MODEL"]
         vol = rf.Volume(tuple(a["volume_shape"]), a["volume_origin"],
                         a["voxel_size"], c["DATA"]["init_value"], device)
@@ -174,18 +182,19 @@ def compare_run(run, final) -> Dict[str, float]:
 def flops_per_frame(run) -> float:
     """FLOPs of one frame's nets at the cell's shapes, counted on the
     reference's nets on the meta device (the same count whatever
-    implements them): FusionNet, and AdapNet++ where the cell labels."""
+    implements them): the fusion net, and the segmenter where the cell
+    labels."""
     from torch.utils.flop_counter import FlopCounterMode
     c = run.cell.config["config"]
     h, w = int(c["DATA"]["resy"]), int(c["DATA"]["resx"])
     p = int(c["FUSION_MODEL"]["n_points"])
     with torch.device("meta"):
-        fnet = nets.fusion_net_for(c["FUSION_MODEL"])
+        fnet = architectures.fusion(c).reference(c["FUSION_MODEL"])
         inputs = {"tsdf_values": torch.zeros(1, h, w, p),
                   "tsdf_weights": torch.zeros(1, h, w, p),
                   "tsdf_frame": torch.zeros(1, h, w, 1),
                   "semantic_frame": torch.zeros(1, h, w, 1)}
-        seg = (nets.segmenter_for(c["SEMANTIC_2D_MODEL"])
+        seg = (architectures.segmenter(c).reference(c["SEMANTIC_2D_MODEL"])
                if run.seg_state is not None else None)
         with FlopCounterMode(display=False) as fc:
             fnet(inputs)

@@ -6,8 +6,10 @@ the plain reference.
 Everything a cell is made of is data the harness finds by name:
 ``configs/<config>.json`` (the yaml section the port reads, and the sizes
 assumed), ``traffic/<traffic>.json`` (the loop and its parameters),
-``limits/<cell>.json`` (the limit of each number compared) and
-``metrics/<metric>.py`` (one reader per per-layer metric).
+``limits/<cell>.json`` (the limit of each number compared),
+``metrics/<metric>.py`` (one reader per per-layer metric) and
+``nets/<kind>/<name>.py`` (how each net is built in the port, and its
+plain reference: ``architectures``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from . import check, scene, spans, weights
+from . import architectures, check, scene, spans, weights
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -109,29 +111,33 @@ class Run:
 
 
 def build(cell: Cell, seed: int, device) -> Run:
-    """Weights, the pipeline, the orbit's frames and an empty stream."""
-    from segfusion_tpu_torch.core.pipeline import Pipeline
-    from segfusion_tpu_torch.models.adapnet import (SegmenterAdapter,
-                                                    build_adapnet)
-    from segfusion_tpu_torch.models.fusionnet import build_fusion_net
-
+    """Weights, the pipeline, the orbit's frames and an empty stream. The
+    nets' files are found by name first (``architectures``): an unknown
+    name stops the run before anything is built."""
     run = Run(cell, seed, device)
     cfg, dev = run.cfg, run.device
+    fusion_file = architectures.fusion(cell.config["config"])
+    labels = bool(cfg.DATA.get("semantics")) and \
+        cfg.DATA.semantic_strategy == "predict"
+    seg_file = (architectures.segmenter(cell.config["config"]) if labels
+                else None)
+    from segfusion_tpu_torch.core.pipeline import Pipeline
+
     with torch.device("meta"):
-        fnet = build_fusion_net(cfg.FUSION_MODEL)
+        fnet = fusion_file.port(cfg.FUSION_MODEL)
     run.fusion_state = weights.random_state(
         fnet, weights.generator(seed, 1, dev), dev)
     fnet.load_state_dict(run.fusion_state, assign=True)
     segmenter, run.seg_state = None, None
-    if cfg.DATA.get("semantics") and cfg.DATA.semantic_strategy == "predict":
+    if seg_file is not None:
         with torch.device("meta"):
-            anet = build_adapnet(cfg.SEMANTIC_2D_MODEL)
+            snet = seg_file.port(cfg.SEMANTIC_2D_MODEL)
         dtype = (torch.bfloat16 if cfg.SEMANTIC_2D_MODEL.get("compute_dtype")
                  in ("bfloat16", "bf16") else torch.float32)
         run.seg_state = weights.random_state(
-            anet, weights.generator(seed, 2, dev), dev, dtype)
-        anet.load_state_dict(run.seg_state, assign=True)
-        segmenter = SegmenterAdapter(anet.eval())
+            snet, weights.generator(seed, 2, dev), dev, dtype)
+        snet.load_state_dict(run.seg_state, assign=True)
+        segmenter = seg_file.pipeline_segmenter(snet.eval())
     run.pipe = Pipeline(cfg, segmenter=segmenter, fusion_net=fnet,
                         device=dev)
     t = cell.traffic
@@ -225,11 +231,11 @@ def run_window(run: Run, seconds: float, limit_units: Optional[int] = None
             if (due >= t0 + seconds if limit_units is None
                     else i >= limit_units):
                 break
-            now = time.perf_counter()
-            if now < due:
-                time.sleep(max(0.0, due - now - 0.0005))
-                while time.perf_counter() < due:
-                    pass
+            # wait on the clock itself, not in a sleep: on a shared host a
+            # sleep woke up to 20 ms late, and that lateness counted as
+            # the port's latency
+            while time.perf_counter() < due:
+                pass
             begin = time.perf_counter()
             if done <= due:            # the generator's own lateness
                 late.append(begin - due)

@@ -137,7 +137,7 @@ def step(vol: Volume, net, frame: Dict[str, torch.Tensor], n_points: int,
          probe: bool = False, probe_ids=None):
     """One frame into ``vol``: ``frame`` holds depth (h, w), mask (h, w),
     extrinsics, intrinsics; ``sem`` the frame's (ids, scores) (h*w,) or
-    None. With ``probe`` the frame's net also runs with its convolutions'
+    None. With ``probe`` the frame's net also runs with its products'
     operands rounded to bfloat16 (and, where the frame is labelled, on the
     labels ``probe_ids`` of a segmenter so rounded), and the mean gap of
     the clipped estimates (over the rays with depth) adds to
@@ -161,7 +161,7 @@ def step(vol: Volume, net, frame: Dict[str, torch.Tensor], n_points: int,
     est = torch.clamp(est, -vol.init_value, vol.init_value)
     ray_mask = (torch.where(frame["mask"], depth, 0.0) != 0.0).reshape(-1)
     if probe:
-        from .nets import set_quantiser
+        from .layers import set_quantiser
         if probe_ids is not None:
             inputs = dict(inputs, semantic_frame=(
                 (1.0 + probe_ids.float()) / n_classes).reshape(1, h, w, 1))

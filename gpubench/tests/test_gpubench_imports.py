@@ -1,6 +1,7 @@
 """No module of the benchmark imports JAX, Flax or the JAX package, and
 the reference imports nothing of the port: top-level names compared
-whole (``segfusion_tpu_torch`` begins with ``segfusion_tpu``). The
+whole (``segfusion_tpu_torch`` begins with ``segfusion_tpu``); a net's
+file reaches the port only in its port-side functions. The
 harness reads the port through its own spans and counters, and replaces
 no attribute of it."""
 
@@ -16,7 +17,10 @@ FILES = sorted(BENCH.rglob("*.py"))
 
 
 def _imports(path):
-    tree = ast.parse(path.read_text(), str(path))
+    return _names(ast.parse(path.read_text(), str(path)))
+
+
+def _names(tree):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for a in node.names:
@@ -46,6 +50,19 @@ def test_reference_imports_no_port(path):
     names = set(_imports(path))
     assert "segfusion_tpu_torch" not in names
     assert "gpubench" not in names
+
+
+@pytest.mark.parametrize("path", sorted((BENCH / "nets").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(BENCH)))
+def test_net_reference_imports_no_port(path):
+    """A net's file reaches the port only inside its port-side functions;
+    its reference imports nothing of it."""
+    tree = ast.parse(path.read_text(), str(path))
+    port_side = {"port", "pipeline_segmenter"}
+    rest = [n for n in tree.body if not (isinstance(n, ast.FunctionDef)
+                                         and n.name in port_side)]
+    assert "segfusion_tpu_torch" not in set(
+        _names(ast.Module(body=rest, type_ignores=[])))
 
 
 def test_forbidden_modules_compares_whole_names():

@@ -7,9 +7,10 @@ import copy
 import pytest
 import torch
 
-from gpubench import check, harness, weights
-from gpubench.reference import nets
+from gpubench import architectures, check, harness, weights
 from gpubench.tests.tiny import tiny_cell
+
+CONFIG = harness.load_cell("accuracy.stream").config["config"]
 
 
 def _port_fusion(use_semantics):
@@ -20,7 +21,8 @@ def _port_fusion(use_semantics):
 @pytest.mark.parametrize("use_semantics", [False, True])
 def test_fusionnet(use_semantics):
     port = _port_fusion(use_semantics).eval()
-    ref = nets.FusionNetV3(use_semantics=use_semantics).eval()
+    ref = architectures.fusion(CONFIG).FusionNetV3(
+        use_semantics=use_semantics).eval()
     assert set(port.state_dict()) == set(ref.state_dict())
     state = weights.random_state(ref, weights.generator(3, 1, "cpu"), "cpu")
     port.load_state_dict(state)
@@ -39,7 +41,8 @@ def test_fusionnet(use_semantics):
 def test_adapnet_stage2():
     from segfusion_tpu_torch.models.adapnet import AdapNet, SegmenterAdapter
     port = AdapNet(n_classes=30, stage=2).eval()
-    ref = nets.AdapNetStage2(30).eval()
+    ref = architectures.segmenter(CONFIG).reference(
+        CONFIG["SEMANTIC_2D_MODEL"]).eval()
     assert set(port.state_dict()) == set(ref.state_dict())
     state = weights.random_state(ref, weights.generator(4, 2, "cpu"), "cpu")
     port.load_state_dict(state)

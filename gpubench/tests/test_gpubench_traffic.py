@@ -43,9 +43,10 @@ def test_orbit_step():
 
 
 def test_weights_from_seed():
-    from gpubench.reference import nets
+    from gpubench import architectures, harness
+    conf = harness.load_cell("accuracy.stream").config["config"]
     with torch.device("meta"):
-        net = nets.FusionNetV3(use_semantics=True)
+        net = architectures.fusion(conf).reference(conf["FUSION_MODEL"])
     a = weights.random_state(net, weights.generator(5, 1, "cpu"), "cpu")
     b = weights.random_state(net, weights.generator(5, 1, "cpu"), "cpu")
     c = weights.random_state(net, weights.generator(6, 1, "cpu"), "cpu")
