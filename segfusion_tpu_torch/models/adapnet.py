@@ -18,17 +18,23 @@ BatchNorm statistics, the layer3[2] dropout drawn from the generator
 given to :meth:`AdapNet.set_dropout_generator`. ``forward`` returns
 ``[res, aux1, aux2]`` in f32, the aux heads upsampled bilinearly with
 half-pixel centres (``jax.image.resize``'s "bilinear");
-:meth:`AdapNet.logits` computes ``res`` alone.
+:meth:`AdapNet.logits` computes ``res`` alone. :class:`SegmenterAdapter`
+replays its inference forward from a CUDA graph per input signature on
+the card (its docstring says when); the kernels, and so the numbers, are
+the eager forward's.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
+from ..utils import tracing
+from .cuda_graphs import SignatureGraphs, _capture, _on_card
 from .layers import (BatchNorm, Conv2d, ConvTranspose2d, Dropout,
                      set_dropout_generator)
 
@@ -345,28 +351,75 @@ def build_adapnet(config) -> AdapNet:
     return net
 
 
+def _storage(model: nn.Module) -> Tuple[int, ...]:
+    """The address of every parameter and buffer of ``model``, its
+    submodules' included."""
+    ptrs, modules = [], [model]
+    for m in modules:
+        for t in m._parameters.values():
+            if t is not None:
+                ptrs.append(t.data_ptr())
+        for t in m._buffers.values():
+            if t is not None:
+                ptrs.append(t.data_ptr())
+        modules.extend(m._modules.values())
+    return tuple(ptrs)
+
+
 class SegmenterAdapter:
     """Pipeline-facing adapter: NHWC frames in, NHWC logits out. ``image``
     is (h, w, 3) in 0..255, ``depth`` (h, w); the image is scaled to [0, 1]
     and the depth repeated to 3 channels (reference normalisation). A
     stage-1 model sees the image where ``input_mode`` is "image", else the
-    depth."""
+    depth.
+
+    A call replays a CUDA graph of the whole forward, frames to logits,
+    when both inputs are CUDA tensors, the model is in eval mode, no
+    ``TorchDispatchMode`` is active (``tracing.nan_guard``,
+    ``FlopCounterMode``) and the stream is not capturing; any other call
+    (the CPU, train mode) runs eager. The graphs are kept by
+    ``cuda_graphs.SignatureGraphs``, one per :meth:`_signature`: the first
+    call at one runs eager, the second captures, later ones replay; the
+    logits returned are a copy of the graph's, which the next replay
+    overwrites. A parameter or buffer whose storage moved (``.to(...)``,
+    ``load_state_dict(assign=True)``) drops every graph; an in-place
+    change is read by the next replay. Counters (``utils/tracing``):
+    ``adapnet.eager``, ``adapnet.captures``, ``adapnet.replays``."""
 
     def __init__(self, model: AdapNet, input_mode: str = "tof_depth"):
         self.model = model
         self.input_mode = input_mode
+        self._graphs = SignatureGraphs("adapnet")
 
     def apply_fn(self, image, depth):
         return self.apply_fn_batched(image[None], depth[None])[0]
+
+    def _signature(self, images, depths) -> tuple:
+        """What a graph is kept by: each input's shape (batch, height,
+        width), dtype and device, the model's compute dtype and the
+        input mode."""
+        return (tuple(images.shape), images.dtype, images.device,
+                tuple(depths.shape), depths.dtype, depths.device,
+                self.model.compute_dtype, self.input_mode)
+
+    def _logits(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        img = (inputs["images"] / 255.0).permute(0, 3, 1, 2)
+        dep = inputs["depths"][:, None].expand(-1, 3, -1, -1)
+        if self.model.stage == 1:
+            mod1 = img if self.input_mode == "image" else dep
+            return self.model.logits(mod1).permute(0, 2, 3, 1)
+        return self.model.logits(img, dep).permute(0, 2, 3, 1)
 
     @torch.no_grad()
     def apply_fn_batched(self, images, depths):
         """(B, h, w, 3) images, (B, h, w) depths -> (B, h, w, C) f32
         logits. Inference BatchNorm: each sample independent of the
         batch."""
-        img = (images / 255.0).permute(0, 3, 1, 2)
-        dep = depths[:, None].expand(-1, 3, -1, -1)
-        if self.model.stage == 1:
-            mod1 = img if self.input_mode == "image" else dep
-            return self.model.logits(mod1).permute(0, 2, 3, 1)
-        return self.model.logits(img, dep).permute(0, 2, 3, 1)
+        inputs = {"images": images, "depths": depths}
+        if not (_on_card(inputs) and not self.model.training
+                and _get_current_dispatch_mode() is None):
+            tracing.count("adapnet.eager")
+            return self._logits(inputs)
+        return self._graphs(self._signature(images, depths),
+                            _storage(self.model), inputs, self._logits,
+                            _capture)

@@ -45,9 +45,8 @@ launches; the kernels, and so the numbers, are the eager executor's.
 
 from __future__ import annotations
 
-import collections
 import contextlib
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +54,8 @@ from torch import nn
 from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from ..utils import tracing
+from .cuda_graphs import (_GRAPHS_MAX, _SEEN, SignatureGraphs,  # noqa: F401
+                          _capture, _on_card)
 
 __all__ = ["fold_v3", "apply_v3", "apply_v3_train", "FastV3",
            "exact_matmuls"]
@@ -436,41 +437,6 @@ def _tree_map(fn, tree):
     return None if tree is None else fn(tree)
 
 
-# the input signatures (and their graphs) one executor keeps
-_GRAPHS_MAX = 4
-_SEEN = object()        # a signature met once: its call ran eager
-# one capture stream per card index, reused by every capture on it
-_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
-
-
-def _on_card(inputs: Dict[str, torch.Tensor]) -> bool:
-    """Every input a CUDA tensor, and the current stream not already
-    capturing a graph."""
-    return (all(t.is_cuda for t in inputs.values())
-            and not torch.cuda.is_current_stream_capturing())
-
-
-def _capture(fn: Callable[[], torch.Tensor], device: torch.device
-             ) -> Tuple[Callable[[], None], torch.Tensor]:
-    """``fn`` warmed up on ``device``'s capture stream, then captured
-    into a CUDA graph there. Returns the graph's replay and ``fn``'s
-    output, which each replay rewrites in place (on the current
-    stream)."""
-    with torch.cuda.device(device):
-        stream = _CAPTURE_STREAMS.get(device.index)
-        if stream is None:
-            stream = _CAPTURE_STREAMS[device.index] = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            fn()
-        torch.cuda.current_stream().wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream,
-                              capture_error_mode="thread_local"):
-            out = fn()
-    return graph.replay, out
-
-
 class FastV3(nn.Module):
     """Fold once, apply many: :func:`fold_v3` of ``net`` with its weight
     matrices cast to ``dtype`` once (biases stay float32), held as
@@ -481,7 +447,8 @@ class FastV3(nn.Module):
     CUDA tensor, gradients are off, no ``TorchDispatchMode`` is active
     (``tracing.nan_guard``, ``FlopCounterMode``) and the stream is not
     capturing; any other call runs eager. Graphs are kept per input
-    signature (each input's key, shape, dtype and device): the first call
+    signature (each input's key, shape, dtype and device) by
+    ``cuda_graphs.SignatureGraphs``: the first call
     at a signature runs eager, the second warms up on the capture stream,
     captures and replays, later ones copy their inputs into the graph's
     static inputs and replay. The estimates returned are a copy of the
@@ -509,9 +476,7 @@ class FastV3(nn.Module):
         self._spec = _tree_map(keep, folded)
         self.dtype = dtype
         self.conv3x3 = conv3x3
-        # signature -> _SEEN or (static inputs, replay, static output)
-        self._graphs = collections.OrderedDict()
-        self._graph_ptrs = None     # the buffers' storage the graphs read
+        self._graphs = SignatureGraphs("fusionnet")
 
     def _eager(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
         folded = _tree_map(lambda n: getattr(self, n), self._spec)
@@ -524,34 +489,9 @@ class FastV3(nn.Module):
             tracing.count("fusionnet.eager")
             return self._eager(inputs)
         ptrs = tuple(b.data_ptr() for b in self._buffers.values())
-        if ptrs != self._graph_ptrs:
-            self._graphs.clear()
-            self._graph_ptrs = ptrs
         key = tuple((k, tuple(t.shape), t.dtype, t.device)
                     for k, t in sorted(inputs.items()))
-        graph = self._graphs.get(key)
-        if graph is None:
-            self._graphs[key] = _SEEN
-            while len(self._graphs) > _GRAPHS_MAX:
-                self._graphs.popitem(last=False)
-            tracing.count("fusionnet.eager")
-            return self._eager(inputs)
-        self._graphs.move_to_end(key)
-        if graph is _SEEN:
-            with tracing.span("fusionnet.capture"):
-                static = {k: t.clone() for k, t in inputs.items()}
-                replay, out = _capture(lambda: self._eager(static),
-                                       next(iter(static.values())).device)
-            self._graphs[key] = graph = (static, replay, out)
-            tracing.count("fusionnet.captures")
-        static, replay, out = graph
-        with tracing.span("fusionnet.replay"):
-            for k, t in inputs.items():
-                static[k].copy_(t)
-            replay()
-            est = out.clone()
-        tracing.count("fusionnet.replays")
-        return est
+        return self._graphs(key, ptrs, inputs, self._eager, _capture)
 
 
 # -- training -----------------------------------------------------------------

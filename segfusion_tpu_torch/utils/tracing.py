@@ -17,11 +17,13 @@ traces reduced to them, and a NaN/Inf guard.
   opened on one thread at a time.
 - **Counters** (host integers): ``frames`` (real frames handed in, the
   padding of ``frame_block`` left out), ``blocks``, ``chunks``; through
-  :func:`count`, made at the first count, ``fusionnet.eager``,
-  ``fusionnet.captures`` and ``fusionnet.replays`` (the folded
-  executor's calls that ran eager, its CUDA graph captures, and its calls
-  that replayed one; ``models/fusionnet_fast.FastV3``). Off, a count is
-  one check of the module global, as a span is.
+  :func:`count`, made at the first count, ``<x>.eager``,
+  ``<x>.captures`` and ``<x>.replays`` for ``x`` = ``fusionnet`` (the
+  folded executor, ``models/fusionnet_fast.FastV3``) and ``adapnet``
+  (the segmenter, ``models/adapnet.SegmenterAdapter``): their calls that
+  ran eager, their CUDA graph captures, and their calls that replayed
+  one (``models/cuda_graphs.py``). Off, a count is one check of the
+  module global, as a span is.
 - :func:`reduce_profile` reduces a ``torch.profiler`` trace taken with
   labels to numbers per span name: the host's launch calls (kernel
   launches, async copies and sets; a graph launch once), the device time

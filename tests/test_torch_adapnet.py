@@ -29,6 +29,7 @@ from segfusion_tpu_torch.config import Config
 from segfusion_tpu_torch.models.adapnet import (AdapNet, SegmenterAdapter,
                                                 build_adapnet, upsample)
 from segfusion_tpu_torch.models.layers import Dropout
+from segfusion_tpu_torch.utils import tracing
 from segfusion_tpu_torch.utils.convert import (adapnet_from_flax, flax_tree,
                                                to_flax)
 from segfusion_tpu_torch.utils.losses import cross_entropy
@@ -275,3 +276,169 @@ def test_per_element_dropout_rate_and_generator():
                                   generator=torch.Generator()
                                   .manual_seed(1)))[0])
     assert torch.equal(outs[0], outs[1])
+
+
+# -- the adapter's CUDA graphs ------------------------------------------------
+
+def _adapter(stage=2, compute_dtype="bfloat16", seed=0):
+    """A seeded eval-mode AdapNet (4 classes) behind the adapter, its
+    BatchNorm statistics drawn away from identity."""
+    torch.manual_seed(seed)
+    net = build_adapnet(Config({"n_classes": N_CLASSES, "stage": stage,
+                                "compute_dtype": compute_dtype})).eval()
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d) or hasattr(
+                    m, "running_var"):
+                m.running_mean.normal_(0.0, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    return SegmenterAdapter(net)
+
+
+def _torch_frames(seed, b=B, h=H, w=W):
+    images, depths = _frames(np.random.RandomState(seed))
+    images = np.resize(images, (b, h, w, 3)).astype(np.float32)
+    depths = np.resize(depths, (b, h, w)).astype(np.float32)
+    return torch.from_numpy(images), torch.from_numpy(depths)
+
+
+def _model_logits(seg, images, depths):
+    """``model.logits`` of the adapter's normalised inputs, NHWC."""
+    img = (images / 255.0).permute(0, 3, 1, 2)
+    dep = depths[:, None].expand(-1, 3, -1, -1)
+    with torch.no_grad():
+        return seg.model.logits(img, dep).permute(0, 2, 3, 1)
+
+
+def _adapnet_counts(tr):
+    return {k: v for k, v in tr.counters.items()
+            if k.startswith("adapnet.")}
+
+
+def test_adapter_on_the_cpu_runs_eager():
+    """On CPU tensors every call runs eager, counts ``adapnet.eager``,
+    keeps no graph and returns ``model.logits``' bits."""
+    seg = _adapter()
+    frames = [_torch_frames(s) for s in (1, 2, 1)]
+    with tracing.enabled() as tr:
+        got = [seg.apply_fn_batched(*f) for f in frames]
+    assert _adapnet_counts(tr) == {"adapnet.eager": 3}
+    assert not seg._graphs
+    for f, g in zip(frames, got):
+        assert g.shape == (B, H, W, N_CLASSES) and g.dtype == torch.float32
+        assert torch.equal(g, _model_logits(seg, *f))
+    assert not torch.equal(got[0], got[1])
+
+
+_SIGNATURE_CHANGES = {
+    "batch": lambda seg, i, d: (seg, i[:1], d[:1]),
+    "height": lambda seg, i, d: (seg, i[:, :16], d[:, :16]),
+    "width": lambda seg, i, d: (seg, i[:, :, :16], d[:, :, :16]),
+    "image_dtype": lambda seg, i, d: (seg, i.double(), d),
+    "depth_dtype": lambda seg, i, d: (seg, i, d.double()),
+    "image_device": lambda seg, i, d: (seg, i.to("meta"), d),
+    "depth_device": lambda seg, i, d: (seg, i, d.to("meta")),
+    "compute_dtype": lambda seg, i, d: (
+        setattr(seg.model, "compute_dtype", torch.float32) or seg, i, d),
+    "input_mode": lambda seg, i, d: (
+        setattr(seg, "input_mode", "image") or seg, i, d),
+}
+
+
+@pytest.mark.parametrize("field", sorted(_SIGNATURE_CHANGES))
+def test_adapter_signature_keeps_every_field(field):
+    """A graph is kept by every field its forward depends on: two calls
+    that differ in one of them have different signatures, two alike the
+    same one."""
+    seg = _adapter()
+    images, depths = _torch_frames(3)
+    key = seg._signature(images, depths)
+    assert seg._signature(images.clone(), depths.clone()) == key
+    other = _SIGNATURE_CHANGES[field](seg, images, depths)
+    assert other[0]._signature(*other[1:]) != key
+
+
+@pytest.fixture
+def fake_adapnet_graphs(monkeypatch):
+    """The adapter takes its graph path on CPU tensors: ``_on_card`` says
+    yes, and ``_capture`` returns a fake graph whose replay re-runs the
+    captured callable into its static output. Yields the captures made."""
+    from segfusion_tpu_torch.models import adapnet as an
+    captures = []
+
+    def capture(fn, device):
+        out = fn()
+        captures.append(device)
+        return (lambda: out.copy_(fn())), out
+
+    monkeypatch.setattr(an, "_on_card", lambda inputs: True)
+    monkeypatch.setattr(an, "_capture", capture)
+    yield captures
+
+
+def test_adapter_graph_counts_and_own_results(fake_adapnet_graphs):
+    """n calls at one signature, each on other frames: one eager call,
+    one capture, n - 1 replays (the capturing call replays its graph);
+    every result equals ``model.logits`` bit for bit after all the calls
+    ran (two replays in a row each keep their own result); the spans
+    nest the capture and the replays."""
+    seg = _adapter()
+    frames = [_torch_frames(s) for s in (4, 5, 6, 7, 8)]
+    with tracing.enabled() as tr:
+        got = [seg.apply_fn_batched(*f) for f in frames]
+    assert len(fake_adapnet_graphs) == 1
+    assert _adapnet_counts(tr) == {"adapnet.eager": 1,
+                                   "adapnet.captures": 1,
+                                   "adapnet.replays": 4}
+    names = [s["name"] for s in tr.spans]
+    assert names.count("adapnet.capture") == 1
+    assert names.count("adapnet.replay") == 4
+    for f, g in zip(frames, got):
+        assert torch.equal(g, _model_logits(seg, *f))
+    assert not torch.equal(got[3], got[4])
+
+
+def test_adapter_moved_storage_drops_graphs(fake_adapnet_graphs):
+    """A parameter whose storage moved drops every graph: the next call
+    runs eager and the one after captures anew, reading the new value;
+    an in-place change is read by the next replay without a capture."""
+    seg = _adapter()
+    x = _torch_frames(9)
+    conv = seg.model.decoder.Conv_6
+    with torch.no_grad():
+        seg.apply_fn_batched(*x), seg.apply_fn_batched(*x)
+        conv.weight.mul_(1.5)
+        with tracing.enabled() as tr:
+            inplace = seg.apply_fn_batched(*x)
+        assert _adapnet_counts(tr) == {"adapnet.replays": 1}
+        assert torch.equal(inplace, _model_logits(seg, *x))
+        conv.weight.data = conv.weight.data * 2.0
+        with tracing.enabled() as tr:
+            got = [seg.apply_fn_batched(*x) for _ in range(3)]
+    assert _adapnet_counts(tr) == {"adapnet.eager": 1,
+                                   "adapnet.captures": 1,
+                                   "adapnet.replays": 2}
+    assert len(fake_adapnet_graphs) == 2
+    for g in got:
+        assert torch.equal(g, _model_logits(seg, *x))
+    assert not torch.equal(inplace, got[-1])
+
+
+def test_adapter_train_mode_and_dispatch_modes_run_eager(
+        fake_adapnet_graphs):
+    """With the model in train mode, or under a ``TorchDispatchMode``
+    (the NaN guard), a call runs eager and captures nothing."""
+    seg = _adapter()
+    x = _torch_frames(10)
+    seg.model.train()
+    seg.model.set_dropout_generator(torch.Generator().manual_seed(2))
+    with tracing.enabled() as tr:
+        seg.apply_fn_batched(*x), seg.apply_fn_batched(*x)
+    seg.model.eval()
+    guarded = tracing.nan_guard(seg.apply_fn_batched)
+    with tracing.enabled() as tr2:
+        got = [guarded(*x) for _ in range(2)]
+    assert _adapnet_counts(tr) == {"adapnet.eager": 2}
+    assert _adapnet_counts(tr2) == {"adapnet.eager": 2}
+    assert not fake_adapnet_graphs and not seg._graphs
+    assert torch.equal(got[1], _model_logits(seg, *x))
